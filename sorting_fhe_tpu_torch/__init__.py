@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of sorting_fhe_tpu: RNS-CKKS encrypted sorting.
+
+Same module layout and names as the JAX package, which stays the
+reference each part is checked against:
+
+  core/    CKKS runtime: number theory, RNS arithmetic (rns), NTT tables
+           and plain versions (ntt), the hand-written CUDA NTT kernels
+           (cuda_ntt + csrc/ntt.cu), params, keys, ckks, poly_eval,
+           interop (JAX-side arrays <-> this package's tensors)
+  ops/     sign / compare / rotation machinery / Chebyshev coefficients
+  models/  direct_sort (hybrid1 is the ported path), mehp24 (indicator)
+  bench.py sort_bench on one CUDA device
+
+Imports torch and numpy only, never jax.  The CUDA kernels build at first
+use on a CUDA device (core/cuda_ntt.py).
+"""

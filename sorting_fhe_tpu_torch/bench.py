@@ -1,0 +1,214 @@
+"""Encrypted-sort benchmark of the torch port (direct family).
+
+Counterpart of the repository's bench.py `sort_bench`: build the
+depth-matched full-fidelity context for (algo, N) from the registry,
+generate keys, encrypt one test vector, run the sort `trials` times and
+check the first result against np.sort.  The record has the JAX bench's
+keys plus the peak device memory of each phase (setup, keys, encrypt,
+sort) from torch.cuda.max_memory_allocated, the op census of each trial
+and the device it ran on.
+
+    python -m sorting_fhe_tpu_torch.bench [algo] [N] [ring_log] [trials]
+
+prints one JSON record on stdout; it needs a CUDA device (on any other
+device it exits non-zero: a CPU time is not a result of this benchmark).
+With BENCH_PROFILE=<dir> the last trial runs under torch.profiler: the
+record gains a device-time breakdown by kernel and the chrome trace goes
+to <dir>.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Reference hybrid1 averages: OpenFHE on a CPU, ring 2^17, HEStd_128_classic,
+# average of 10 trials (BASELINE.md table; seconds)
+BASELINE_HYBRID1 = {4: 26.69, 8: 36.25, 16: 37.03, 32: 52.14, 64: 56.93,
+                    128: 74.12, 256: 93.53, 512: 178.87, 1024: 406.93}
+DIRECT_ALGOS = ("direct", "hybrid", "hybrid1", "hybrid2")
+
+
+def log(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _reset_peak(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _mem_gb(device: torch.device) -> dict:
+    """Peak and current allocated device memory since the last reset (GB);
+    empty off CUDA."""
+    if device.type != "cuda":
+        return {}
+    return {"peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "in_use_gb": torch.cuda.memory_allocated(device) / 1e9}
+
+
+def resident_gb(ctx) -> dict:
+    """Accounted resident working set: keys, NTT tables, plaintext cache."""
+    ntt = ctx.params.ntt
+    out = {
+        "rot_keys_gb": ctx.rot_keys.resident_bytes / 1e9,
+        "relin_key_gb": ctx.relin_key.nbytes / 1e9,
+        "ntt_tables_gb": sum(getattr(ntt, nm).nbytes for nm in
+                             ("psi", "psi_sh", "ipsi", "ipsi_sh")) / 1e9,
+        "pt_cache_gb": ctx._pt_cache_bytes / 1e9,
+    }
+    out["total_gb"] = sum(out.values())
+    return out
+
+
+def profile_summary(prof, wall_s: float, top: int = 15) -> dict:
+    """Device time by kernel name from a finished torch.profiler run, and
+    the device's busy and idle share of the trial's wall time (one
+    stream: kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    us, count = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
+    busy = sum(us.values()) / 1e6
+    if not us:
+        return {"device_time": "not measured (no device events traced)"}
+    return {"wall_s": wall_s, "device_busy_s": busy,
+            "device_idle_share": 1.0 - busy / wall_s,
+            "kernels": sum(count.values()),
+            "top": [{"name": k[:120], "s": v / 1e6, "share": v / 1e6 / busy,
+                     "count": count[k]} for k, v in us.most_common(top)]}
+
+
+def sort_bench(algo: str, N: int, ring_log: int, trials: int,
+               device="cuda", seed: int = 42,
+               profile_dir: str | None = None) -> dict:
+    """Run the (algo, N) encrypted sort at ring 2^ring_log on `device`;
+    with `profile_dir`, trace the last trial (see profile_summary)."""
+    from .core.ckks import CkksContext
+    from .models.direct_sort import DirectSort
+    from .registry import get_params, full_config, security_check
+    from .utils.testvec import vector_with_min_diff
+
+    if algo not in DIRECT_ALGOS:
+        raise KeyError(f"not ported: {algo!r} (ported: {DIRECT_ALGOS})")
+    device = torch.device(device)
+    p = get_params(algo, N)
+    cfg = full_config(p, ring_dim=1 << ring_log)
+    mem, secs = {}, {}
+
+    _reset_peak(device)
+    t0 = time.time()
+    ctx = CkksContext(cfg, device=device)
+    _sync(device)
+    secs["setup"], mem["setup"] = time.time() - t0, _mem_gb(device)
+    logqp, limit, ok = security_check(cfg, ctx.params)
+    log(f"[setup] context {secs['setup']:.1f}s: {ctx.params.describe()} "
+        f"device={device} security logQP={logqp} limit={limit} ok={ok}")
+
+    # key mode as in the JAX bench: the pow-2 ladder from N >= 32
+    minimal = os.environ.get("BENCH_KEYS", "minimal" if N >= 32
+                             else "registry") == "minimal"
+    _reset_peak(device)
+    t0 = time.time()
+    ds = DirectSort(ctx, N, rot_indices=list(p.rotations),
+                    use_minimal_keys=minimal)
+    sort_fn = {"direct": ds.sort, "hybrid": ds.sort_hybrid,
+               "hybrid1": ds.sort_hybrid1,
+               "hybrid2": ds.sort_hybrid2}[algo]
+    _sync(device)
+    secs["keys"], mem["keys"] = time.time() - t0, _mem_gb(device)
+    log(f"[setup] rotation keys ({len(ctx.rot_keys)}, "
+        f"{'minimal' if minimal else 'registry'}) {secs['keys']:.1f}s "
+        f"{mem['keys']}")
+
+    rng = np.random.default_rng(seed)
+    v = vector_with_min_diff(N, 0, 1, 1.0 / N, rng)
+    _reset_peak(device)
+    t0 = time.time()
+    ct = ctx.encrypt(v, slots=N)
+    _sync(device)
+    secs["encrypt"], mem["encrypt"] = time.time() - t0, _mem_gb(device)
+    cfg_sign = p.sign_config()
+
+    times, census = [], []
+    max_err = prof_summary = None
+    _reset_peak(device)
+    for t in range(trials):
+        traced = profile_dir is not None and t == trials - 1
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) if traced \
+            else contextlib.nullcontext()
+        with prof:
+            t0 = time.time()
+            out = sort_fn(ct, cfg_sign)
+            _sync(device)
+            dt = time.time() - t0
+        times.append(dt)
+        if traced:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                profile_dir, f"trace_{algo}_N{N}.json"))
+            prof_summary = profile_summary(prof, dt)
+        census.append(dict(ctx.op_counts))
+        log(f"[sort] trial {t}: {dt:.2f}s mults={ctx.mult_count} "
+            f"rots={ctx.rot_count} precomps={ctx.precompute_count} "
+            f"pt_encode={ctx.pt_encode_s:.1f}s/{ctx.pt_encode_count} "
+            f"census={census[-1]}")
+        ctx.op_counts.clear()
+        ctx.pt_encode_s = 0.0
+        ctx.pt_encode_count = 0
+        if t == 0:
+            got = ctx.decrypt(out)[:N]
+            max_err = float(np.abs(got - np.sort(v)).max())
+            log(f"[sort] max_err={max_err:.3e} "
+                f"(log2={np.log2(max(max_err, 1e-300)):.2f}; gate 0.01)")
+    mem["sort"] = _mem_gb(device)
+    best = min(times)
+    base = BASELINE_HYBRID1.get(N) if algo == "hybrid1" else None
+    rec = {"metric": f"encrypted_sort_{algo}_N{N}_ring2e{ring_log}",
+           "value": round(best, 3), "unit": "s",
+           "vs_baseline": round(best / base, 4) if base else None,
+           "baseline_s": base, "max_err": max_err,
+           "trials": [round(x, 3) for x in times],
+           "mults": ctx.mult_count, "rots": ctx.rot_count,
+           "security_logqp": logqp, "security_ok": ok,
+           "device_mem": mem, "hbm_budget": resident_gb(ctx),
+           "phase_s": secs, "op_census": census,
+           "device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else str(device))}
+    if prof_summary is not None:
+        rec["profile"] = prof_summary
+    return rec
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        log("no CUDA device: this benchmark measures the GPU port only")
+        return 1
+    algo = argv[0] if argv else "hybrid1"
+    N = int(argv[1]) if len(argv) > 1 else 128
+    ring_log = int(argv[2]) if len(argv) > 2 else 17
+    trials = int(argv[3]) if len(argv) > 3 else 2
+    print(json.dumps(sort_bench(algo, N, ring_log, trials,
+                                profile_dir=os.environ.get("BENCH_PROFILE"))),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,278 @@
+"""Client-side key generation, encryption and decryption.
+
+Counterpart of sorting_fhe_tpu/core/keys.py.  Sampling, the public key,
+encryption and decryption are host numpy code, copied; the key-switching
+key assembly runs on the params' device through the port's NTT (K1 on a
+CUDA device).  Every draw from `np.random.default_rng` happens in the same
+order as in the JAX package, so the same seed gives bit-identical keys.
+
+Hybrid key-switching keys: the q-chain is split into `dnum` digits of
+`alpha` primes; `alpha` special primes P extend the basis.  Key for secret
+s' under s, digit j:
+
+    ksk_j = (b_j, a_j),  b_j = -a_j s + e_j + P * W_j * s'  (mod QP)
+
+with W_j = (Q/D_j) * [(Q/D_j)^{-1}]_{D_j} the CRT reconstruction weight of
+digit j.  Keys are int32 [dnum, 2, num_rows, n] tensors in NTT + Montgomery
+form, rows = q primes then special primes.
+
+Not ported yet: the device-PRNG keygen (`gen_rotation_key_dev`) that key
+streaming needs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import nt
+from .host_poly import (
+    host_ntt, sample_ternary, sample_gaussian, rns_to_centered_bigint,
+)
+from .params import CkksParams
+
+
+def _to_mont(x: np.ndarray, p: int) -> np.ndarray:
+    r = (1 << 32) % p
+    return (x.astype(np.uint64) * r % p)
+
+
+class _LazySNtt(dict):
+    """Per-prime plain-domain NTT of the secret, computed on demand."""
+
+    def __init__(self, coeffs: np.ndarray, n: int):
+        super().__init__()
+        self._coeffs = coeffs
+        self._n = n
+
+    def __missing__(self, p: int):
+        r = (self._coeffs % p).astype(np.uint64)
+        v = host_ntt(p, self._n).fwd(r)
+        self[p] = v
+        return v
+
+
+class SecretKey:
+    def __init__(self, params: CkksParams, rng: np.random.Generator):
+        self.params = params
+        self.s_coeffs = sample_ternary(params.n, rng, params.cfg.secret_hw)
+        self.s_ntt = _LazySNtt(self.s_coeffs, params.n)
+
+
+class KeyGenerator:
+    """Generates all key material; holds the secret (client side only)."""
+
+    def __init__(self, params: CkksParams, seed: int | None = None):
+        self.params = params
+        self.rng = np.random.default_rng(
+            params.cfg.seed if seed is None else seed)
+        self.sk = SecretKey(params, self.rng)
+        self._pk = self._gen_public_key()
+
+    # ---------------- public / encryption keys ----------------
+    def _gen_public_key(self):
+        P = self.params
+        n = P.n
+        qs = P.q
+        e = sample_gaussian(n, P.cfg.sigma, self.rng)
+        b = np.empty((len(qs), n), dtype=np.uint64)
+        a = np.empty((len(qs), n), dtype=np.uint64)
+        for i, p in enumerate(qs):
+            ai = self.rng.integers(0, p, size=n, dtype=np.uint64)  # NTT dom
+            s = self.sk.s_ntt[p]
+            en = host_ntt(p, n).fwd((e % p).astype(np.uint64))
+            bi = (p - ai * s % p + en) % p
+            b[i] = bi
+            a[i] = ai
+        return b, a
+
+    # ---------------- key switching keys ----------------
+    def _digit_indices(self) -> list[list[int]]:
+        P = self.params
+        nq = len(P.q)
+        alpha = P.alpha
+        return [list(range(j * alpha, min((j + 1) * alpha, nq)))
+                for j in range(-(-nq // alpha))]
+
+    def _ksk_weights(self) -> torch.Tensor:
+        """P*W_j mod each row prime, int64 [dnum, nrows] on the device —
+        independent of the switched secret s', cached across keys."""
+        if hasattr(self, "_ksk_w_cache"):
+            return self._ksk_w_cache
+        P = self.params
+        qs = P.q
+        rows = qs + P.p_special
+        Q = 1
+        for q in qs:
+            Q *= q
+        digits = self._digit_indices()
+        w = np.empty((len(digits), len(rows)), dtype=np.int64)
+        for j, dig in enumerate(digits):
+            Dj = 1
+            for i in dig:
+                Dj *= qs[i]
+            Dhat = Q // Dj
+            Wj = Dhat * nt.mod_inverse(Dhat % Dj, Dj)
+            for r, p in enumerate(rows):
+                w[j, r] = (P.P_int % p) * (Wj % p) % p
+        self._ksk_w_cache = torch.from_numpy(w).to(P.device)
+        return self._ksk_w_cache
+
+    def gen_ksk(self, s_prime_coeffs: np.ndarray) -> torch.Tensor:
+        """Key switching key for s' -> s: int32 [dnum, 2, nq + nsp, n],
+        NTT+Montgomery domain, assembled on the params' device.  Only the
+        uniform `a` and the small error polynomials are drawn on the host
+        (same order as the JAX package)."""
+        P = self.params
+        n = P.n
+        rows = P.q + P.p_special
+        nrows = len(rows)
+        dnum = len(self._digit_indices())
+        dev = P.device
+        p = P.primes_dev                                  # int64 [nrows]
+
+        # uniform a (Montgomery-domain uniform == uniform)
+        a_all = np.empty((dnum, nrows, n), dtype=np.uint32)
+        for r, pr in enumerate(rows):
+            a_all[:, r, :] = self.rng.integers(
+                0, pr, size=(dnum, n), dtype=np.uint64).astype(np.uint32)
+        e_all = np.stack([sample_gaussian(n, P.cfg.sigma, self.rng)
+                          for _ in range(dnum)])       # [dnum, n] signed
+
+        s = torch.from_numpy(self.sk.s_coeffs).to(dev)
+        sp = torch.from_numpy(
+            np.asarray(s_prime_coeffs, dtype=np.int64)).to(dev)
+        e = torch.from_numpy(e_all).to(dev)
+        return _ksk_kernel_body(
+            s[None, :] % p[:, None], sp[None, :] % p[:, None],
+            torch.from_numpy(a_all.view(np.int32)).to(dev),
+            e[:, None, :] % p[None, :, None], self._ksk_weights(), P)
+
+    def gen_relin_key(self) -> torch.Tensor:
+        # s^2 mod (X^n + 1) has coefficients bounded by n < p/2, so a single
+        # NTT prime recovers them exactly via centered lift.
+        s2 = _negacyclic_square_int(self.sk.s_coeffs, self.params.q[0],
+                                    self.params.n)
+        return self.gen_ksk(s2)
+
+    def gen_rotation_key(self, g: int) -> torch.Tensor:
+        """Galois key for element g (sigma_g(s) -> s)."""
+        from .encoding import automorphism_index_table
+        src, sign = automorphism_index_table(self.params.n, g)
+        s_rot = sign * self.sk.s_coeffs[src]
+        return self.gen_ksk(s_rot)
+
+    @property
+    def public_key(self):
+        return self._pk
+
+
+def _negacyclic_square_int(s: np.ndarray, p: int, n: int) -> np.ndarray:
+    """Exact s*s mod (X^n+1) for ternary s via one NTT prime + centered lift
+    (coefficients are bounded by n << p/2)."""
+    hp = host_ntt(p, n)
+    sn = hp.fwd((s % p).astype(np.uint64))
+    s2 = hp.inv(sn * sn % p).astype(np.int64)
+    return np.where(s2 > p // 2, s2 - p, s2)
+
+
+def _ksk_kernel_body(s_red, sp_red, a, e_red, w, P: CkksParams):
+    """Device-side KSK assembly: b = e - a*s + P*W_j*s' (all NTT+Mont).
+
+    s_red/sp_red: int64 [nrows, n] plain residues; a: int32 [dnum, nrows, n]
+    uniform (treated as Montgomery-domain, still uniform); e_red: int64
+    [dnum, nrows, n]; w: int64 [dnum, nrows] P*W_j per row.  Counterpart of
+    keys.py:_ksk_kernel_body; the NTTs go through K1."""
+    from .cuda_ntt import ntt_fwd
+    from .rns import mont_mul, add_mod, sub_mod
+
+    p = P.primes_dev
+    rmod = (1 << 32) % p
+    rows = torch.arange(len(P.all_primes), dtype=torch.int32,
+                        device=P.device)
+    p1 = p.reshape(-1, 1)
+    p2 = p.reshape(1, -1, 1)
+    rinv2 = P.mont_r_inv.reshape(1, -1, 1)
+
+    def fwd_mont(x):           # plain residues -> NTT + Montgomery, int64
+        m = x * rmod.reshape(-1, 1) % p1
+        return ntt_fwd(m.to(torch.int32).contiguous(), P.ntt,
+                       rows).to(torch.int64)
+
+    s_ntt = fwd_mont(s_red)
+    sp_ntt = fwd_mont(sp_red)
+    e_ntt = fwd_mont(e_red)
+    term = sp_ntt[None] * w[:, :, None] % p2
+    asl = mont_mul(a, s_ntt[None], p2, rinv2)
+    b = add_mod(sub_mod(e_ntt, asl, p2), term, p2)
+    return torch.stack([b.to(torch.int32), a], dim=1)  # [dnum, 2, nrows, n]
+
+
+class Encryptor:
+    """Public-key encryptor (host side)."""
+
+    def __init__(self, params: CkksParams, public_key, rng=None):
+        self.params = params
+        self.pk = public_key
+        self.rng = rng or np.random.default_rng(params.cfg.seed + 1)
+
+    def encrypt_coeffs(self, coeffs: np.ndarray) -> np.ndarray:
+        """Integer coefficient poly (float64 or object) -> [2, nq, n] u32
+        NTT+Montgomery ciphertext data at full level."""
+        P = self.params
+        n = P.n
+        qs = P.q
+        b, a = self.pk
+        u = sample_ternary(n, self.rng)
+        e0 = sample_gaussian(n, P.cfg.sigma, self.rng)
+        e1 = sample_gaussian(n, P.cfg.sigma, self.rng)
+        out = np.empty((2, len(qs), n), dtype=np.uint32)
+        for i, p in enumerate(qs):
+            hp = host_ntt(p, n)
+            un = hp.fwd((u % p).astype(np.uint64))
+            e0n = hp.fwd((e0 % p).astype(np.uint64))
+            e1n = hp.fwd((e1 % p).astype(np.uint64))
+            if coeffs.dtype == object:
+                mc = (coeffs % p).astype(np.uint64)
+            else:
+                r = np.fmod(coeffs, float(p))
+                mc = np.where(r < 0, r + p, r).astype(np.uint64)
+            mn = hp.fwd(mc)
+            c0 = (b[i] * un + e0n + mn) % p
+            c1 = (a[i] * un + e1n) % p
+            out[0, i] = _to_mont(c0, p).astype(np.uint32)
+            out[1, i] = _to_mont(c1, p).astype(np.uint32)
+        return out
+
+
+class Decryptor:
+    """Secret-key decryptor (host side, client/debug only)."""
+
+    def __init__(self, params: CkksParams, sk: SecretKey):
+        self.params = params
+        self.sk = sk
+
+    def decrypt_to_coeffs(self, data: np.ndarray, num_limbs: int,
+                          max_limbs: int = 3) -> np.ndarray:
+        """[>=2, limbs, n] u32 NTT+Mont ciphertext -> centered big-int
+        coefficient array (object dtype).  Uses only the first
+        min(num_limbs, max_limbs) limbs (mod-reduction is free)."""
+        P = self.params
+        n = P.n
+        use = min(num_limbs, max_limbs)
+        limbs = np.empty((use, n), dtype=np.uint64)
+        k = data.shape[0]
+        for i in range(use):
+            p = P.q[i]
+            hp = host_ntt(p, n)
+            rinv = nt.mod_inverse((1 << 32) % p, p)
+            acc = data[0, i].astype(np.uint64) * rinv % p
+            spow = self.sk.s_ntt[p]
+            si = spow.copy()
+            for comp in range(1, k):
+                ci = data[comp, i].astype(np.uint64) * rinv % p
+                acc = (acc + ci * si) % p
+                if comp + 1 < k:
+                    si = si * spow % p
+            limbs[i] = hp.inv(acc)
+        return rns_to_centered_bigint(limbs, P.q[:use])
