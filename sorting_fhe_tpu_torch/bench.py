@@ -5,8 +5,8 @@ depth-matched full-fidelity context for (algo, N) from the registry,
 generate keys, encrypt one test vector, run the sort `trials` times and
 check the first result against np.sort.  The record has the JAX bench's
 keys plus the peak device memory of each phase (setup, keys, encrypt,
-sort) from torch.cuda.max_memory_allocated, the op census of each trial
-and the device it ran on.
+sort) from torch.cuda.max_memory_allocated, the op census of each trial,
+the NTT kernel launches of each trial and the device it ran on.
 
     python -m sorting_fhe_tpu_torch.bench [algo] [N] [ring_log] [trials]
 
@@ -73,10 +73,12 @@ def resident_gb(ctx) -> dict:
     return out
 
 
-def profile_summary(prof, wall_s: float, top: int = 15) -> dict:
+def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
     """Device time by kernel name from a finished torch.profiler run, and
     the device's busy and idle share of the trial's wall time (one
-    stream: kernels do not overlap)."""
+    stream: kernels do not overlap).  The top 25 names reach the NTT
+    kernels' four entries (two passes each), which a top 15 would cut
+    off."""
     from torch.autograd import DeviceType
     us, count = collections.Counter(), collections.Counter()
     for e in prof.events():
@@ -98,6 +100,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                profile_dir: str | None = None) -> dict:
     """Run the (algo, N) encrypted sort at ring 2^ring_log on `device`;
     with `profile_dir`, trace the last trial (see profile_summary)."""
+    from .core import cuda_ntt
     from .core.ckks import CkksContext
     from .models.direct_sort import DirectSort
     from .registry import get_params, full_config, security_check
@@ -144,7 +147,8 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     secs["encrypt"], mem["encrypt"] = time.time() - t0, _mem_gb(device)
     cfg_sign = p.sign_config()
 
-    times, census = [], []
+    times, census, launches = [], [], []
+    kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv)
     max_err = prof_summary = None
     _reset_peak(device)
     for t in range(trials):
@@ -153,6 +157,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) if traced \
             else contextlib.nullcontext()
+        before = [k.launches for k in kernels]
         with prof:
             t0 = time.time()
             out = sort_fn(ct, cfg_sign)
@@ -165,6 +170,8 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                 profile_dir, f"trace_{algo}_N{N}.json"))
             prof_summary = profile_summary(prof, dt)
         census.append(dict(ctx.op_counts))
+        launches.append({k.__name__: k.launches - n0
+                         for k, n0 in zip(kernels, before)})
         log(f"[sort] trial {t}: {dt:.2f}s mults={ctx.mult_count} "
             f"rots={ctx.rot_count} precomps={ctx.precompute_count} "
             f"pt_encode={ctx.pt_encode_s:.1f}s/{ctx.pt_encode_count} "
@@ -189,6 +196,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
            "security_logqp": logqp, "security_ok": ok,
            "device_mem": mem, "hbm_budget": resident_gb(ctx),
            "phase_s": secs, "op_census": census,
+           "ntt_launches": launches,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else str(device))}
     if prof_summary is not None:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import nt, encoding
+from .device import resolve_device
 from .params import CkksParams, CkksConfig  # noqa: F401
 from .keys import KeyGenerator, Encryptor, Decryptor
 from .keystore import KeyStore
@@ -362,9 +363,9 @@ def _kj_negate(data, p):
 
 class CkksContext:
     """CryptoContext equivalent: params + keys + evaluator + client ops,
-    with every tensor on `device`."""
+    with every tensor on `device` (the card unless device="cpu")."""
 
-    def __init__(self, cfg: CkksConfig, device="cpu"):
+    def __init__(self, cfg: CkksConfig, device="cuda"):
         self._init_common(cfg, device)
         P = self.params
         self.keygen = KeyGenerator(P)
@@ -372,9 +373,10 @@ class CkksContext:
         self.decryptor = Decryptor(P, self.keygen.sk)
         self.relin_key = self.keygen.gen_relin_key()
 
-    def _init_common(self, cfg: CkksConfig, device="cpu"):
+    def _init_common(self, cfg: CkksConfig, device="cuda"):
+        # resolve first: the full chain takes seconds to build on the host
+        self.device = resolve_device(device)
         self.cfg = cfg
-        self.device = torch.device(device)
         self.params = CkksParams(cfg, self.device)
         self.n = self.params.n
         self.delta = float(2 ** cfg.scale_bits)

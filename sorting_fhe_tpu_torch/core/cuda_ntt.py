@@ -12,7 +12,11 @@ the same order as the plain versions ntt.ntt_fwd_t / ntt_inv_t.
 
 Dispatch is on the tensor's device: a CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises.  There is no fallback from
-the kernel to the plain version.
+the kernel to the plain version.  Rings up to 2^18 (MAX_LOGN) are taken.
+
+Each call is at most two kernel launches (csrc/ntt.cu: a column pass over
+[R, C] tiles and a chunk pass).  The C side plans them; `launch_plan`
+reads that plan back from the built library.
 
 The kernels are compiled with nvcc for sm_90a into a shared library with
 a plain C interface, at first CUDA use, from this package's sources only,
@@ -39,6 +43,10 @@ SOURCE = _PKG / "csrc" / "ntt.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+MAX_LOGN = 18              # the ring-2^18 tier: 7 column stages
+PLAN_KEYS = ("logc", "logw", "col_blocks", "chunk_blocks", "col_smem",
+             "chunk_smem")
 
 _lib = None
 build_info: dict = {}      # filled by build(): path, seconds, ptxas report
@@ -84,10 +92,24 @@ def build() -> ctypes.CDLL:
     lib.ntt_inv_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
                                    cll, ci, vp]
     lib.ntt_inv_launch.restype = ci
+    lib.ntt_plan.argtypes = [cll, ci, ctypes.POINTER(cll)]
+    lib.ntt_plan.restype = ci
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
                       ptxas=report)
     _lib = lib
     return lib
+
+
+def launch_plan(limbs: int, logn: int) -> dict:
+    """The kernels' launch plan for `limbs` limbs of 2^logn residues, as
+    the built library computes it (make_plan in csrc/ntt.cu): chunk
+    2^logc, column tile width 2^logw, blocks and dynamic shared-memory
+    bytes of each pass (no column pass when logn <= logc)."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    err = build().ntt_plan(limbs, logn, out)
+    if err:
+        raise ValueError(f"ntt_plan({limbs}, {logn}): cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _check(x: torch.Tensor, tabs: NttContext, rows: torch.Tensor):
@@ -107,6 +129,16 @@ def _check(x: torch.Tensor, tabs: NttContext, rows: torch.Tensor):
                          f"{rows.device}, tables {tabs.p.device}")
 
 
+def _kernel_lib(x: torch.Tensor, tabs: NttContext) -> ctypes.CDLL:
+    """The built library, for an input the kernels take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no NTT kernel for device {x.device}")
+    if tabs.logn > MAX_LOGN:
+        raise ValueError(f"ring 2^{tabs.logn} is above the kernels' "
+                         f"2^{MAX_LOGN}")
+    return build()
+
+
 def _dims(x: torch.Tensor, tabs: NttContext) -> tuple:
     """The launch functions' trailing arguments: L, LP, limbs, logn, stream."""
     return (x.shape[-2], len(tabs.primes), x.numel() // tabs.n, tabs.logn,
@@ -121,9 +153,7 @@ def ntt_fwd(x: torch.Tensor, tabs: NttContext,
     if x.device.type == "cpu":
         r = rows.long()
         return ntt_fwd_t(x, tabs.p[r], tabs.psi[r])
-    if x.device.type != "cuda":
-        raise ValueError(f"no NTT kernel for device {x.device}")
-    lib = build()
+    lib = _kernel_lib(x, tabs)
     out = torch.empty_like(x)
     err = lib.ntt_fwd_launch(x.data_ptr(), out.data_ptr(), rows.data_ptr(),
                              tabs.p.data_ptr(), tabs.psi.data_ptr(),
@@ -142,9 +172,7 @@ def ntt_inv(x: torch.Tensor, tabs: NttContext,
     if x.device.type == "cpu":
         r = rows.long()
         return ntt_inv_t(x, tabs.p[r], tabs.ipsi[r], tabs.n_inv[r])
-    if x.device.type != "cuda":
-        raise ValueError(f"no NTT kernel for device {x.device}")
-    lib = build()
+    lib = _kernel_lib(x, tabs)
     out = torch.empty_like(x)
     err = lib.ntt_inv_launch(x.data_ptr(), out.data_ptr(), rows.data_ptr(),
                              tabs.p.data_ptr(), tabs.ipsi.data_ptr(),
@@ -156,11 +184,11 @@ def ntt_inv(x: torch.Tensor, tabs: NttContext,
     return out
 
 
-# launch counts: raised once per kernel call on a CUDA tensor, nowhere else
-ntt_fwd.launches = 0
-ntt_inv.launches = 0
-
-
 def reset_launch_counts():
-    ntt_fwd.launches = 0
-    ntt_inv.launches = 0
+    """Launch counts: raised once per kernel call on a CUDA tensor, nowhere
+    else."""
+    for fn in (ntt_fwd, ntt_inv):
+        fn.launches = 0
+
+
+reset_launch_counts()

@@ -11,9 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 
-def residues_to_torch(arr, device="cpu") -> torch.Tensor:
+
+def residues_to_torch(arr, device="cuda") -> torch.Tensor:
     """uint32 (or uint64 < 2^31) residue array -> int32 tensor on device."""
+    device = resolve_device(device)
     a = np.asarray(arr)
     if a.dtype == np.uint64:
         if a.size and int(a.max()) >= 1 << 31:
@@ -32,11 +35,12 @@ def residues_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
-def keys_to_torch(public_key, relin_key, rot_keys: dict, device="cpu"):
+def keys_to_torch(public_key, relin_key, rot_keys: dict, device="cuda"):
     """JAX-side key set -> (public key as host uint64 (b, a), relin key
     tensor, {rotation index: key tensor}).  The public key stays on the
     host, where the Encryptor uses it.  The way back is
     residues_to_numpy on each tensor."""
+    device = resolve_device(device)
     b, a = public_key
     pk = (np.asarray(b, dtype=np.uint64), np.asarray(a, dtype=np.uint64))
     return (pk, residues_to_torch(relin_key, device),

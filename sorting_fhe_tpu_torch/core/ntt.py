@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import nt
+from .device import resolve_device
 from .rns import add_mod, sub_mod
 
 
@@ -35,7 +36,8 @@ class NttContext:
     bit patterns (the Shoup companions use all 32 bits).
     """
 
-    def __init__(self, primes: list[int], n: int, device="cpu"):
+    def __init__(self, primes: list[int], n: int, device="cuda"):
+        dev = resolve_device(device)
         self.n = n
         self.logn = n.bit_length() - 1
         self.primes = list(primes)
@@ -54,7 +56,6 @@ class NttContext:
             ipsi_sh[i] = tb["ipsi_brv_shoup"]
             n_inv[i] = tb["n_inv"]
             n_inv_sh[i] = tb["n_inv_shoup"]
-        dev = torch.device(device)
         self.p = _dev_u32(np.asarray(primes, dtype=np.uint32), dev)
         self.psi = _dev_u32(psi, dev)
         self.psi_sh = _dev_u32(psi_sh, dev)

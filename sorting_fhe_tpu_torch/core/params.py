@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from . import nt
+from .device import resolve_device
 from .ntt import NttContext
 
 
@@ -71,9 +72,9 @@ class CkksConfig:
 class CkksParams:
     """Derived parameter set + device-resident tables."""
 
-    def __init__(self, cfg: CkksConfig, device="cpu"):
+    def __init__(self, cfg: CkksConfig, device="cuda"):
+        self.device = resolve_device(device)
         self.cfg = cfg
-        self.device = torch.device(device)
         n = cfg.ring_dim
         self.n = n
         self.num_slots = cfg.batch_size or (n // 2)

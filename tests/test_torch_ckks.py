@@ -60,7 +60,7 @@ def test_ops_bit_equal(ctxs):
     b = _residues(rng, P.q[:l], (2,), n)
     ksk = _residues(rng, P.all_primes, (P.cfg.dnum, 2), n)
     ja, jb, jk = jnp.asarray(a), jnp.asarray(b), jnp.asarray(ksk)
-    ta, tb, tk = (residues_to_torch(x) for x in (a, b, ksk))
+    ta, tb, tk = (residues_to_torch(x, "cpu") for x in (a, b, ksk))
     JT, TT = j.tables(l), t.tables(l)
     jperm, tperm = j._perm(1), t._perm(1)
     np.testing.assert_array_equal(np.asarray(jperm), tperm.numpy())
@@ -84,7 +84,8 @@ def test_ops_bit_equal(ctxs):
                    dtype=np.uint32)
     _eq(jck._kj_encode(jnp.asarray(rows), jnp.asarray(rmod),
                        jnp.asarray(rsh), JT),
-        tck._kj_encode(residues_to_torch(rows), TT.rmod, TT), "encode")
+        tck._kj_encode(residues_to_torch(rows, "cpu"), TT.rmod, TT),
+        "encode")
 
 
 def test_keygen_bit_equal():
@@ -93,7 +94,8 @@ def test_keygen_bit_equal():
     tp = tck.CkksParams(TCfg(**CFG), "cpu")
     jg, tg = JKeyGen(jp, seed=5), TKeyGen(tp, seed=5)
     pk, relin, _ = keys_to_torch(jg.public_key,
-                                 np.asarray(jg.gen_relin_key()), {})
+                                 np.asarray(jg.gen_relin_key()), {},
+                                 device="cpu")
     for jx, tx in zip(pk, tg.public_key):
         np.testing.assert_array_equal(jx, tx)
     assert torch.equal(relin, tg.gen_relin_key())

@@ -25,11 +25,13 @@ def device():
     return torch.device("cuda:0")
 
 
-@pytest.mark.parametrize("logn", [8, 12, 17])
+@pytest.mark.parametrize("logn", [8, 11, 12, 14, 17, 18])
 def test_kernels_bit_equal_to_plain(device, logn):
-    """Prefix rows, row subset [4, 1, 5] with a leading dim, single row;
-    n = 2^8 and 2^12 run the shared-memory stages alone, 2^17 adds the
-    device-memory stages."""
+    """Prefix rows, row subset [4, 1, 5] with a leading dim, a single
+    dynamic row; n = 2^8 and 2^11 run the chunk pass alone, 2^12, 2^14,
+    2^17 and 2^18 add a column pass of 1, 3, 6 and 7 stages at the 2^11
+    chunk (calls too small to fill the card take the 2^10 chunk and one
+    column stage more)."""
     n = 1 << logn
     primes = nt.find_ntt_primes(28, 6, n)
     tabs = NttContext(primes, n, device)
@@ -51,6 +53,35 @@ def test_kernels_bit_equal_to_plain(device, logn):
         assert torch.equal(i, x)
 
 
+def test_launch_plan_covers_every_stage(device):
+    """The library's plan for every ring the kernels take, at the limb
+    counts of the main path's calls (rescale [2, 1, n], special primes
+    [2, 24, n], decompose inverse [95, n], moddown/rescale forward
+    [2, 95, n], decompose forward [4, 119, n]) and a single limb."""
+    for logn in range(1, cuda_ntt.MAX_LOGN + 1):
+        for limbs in (1, 2, 48, 95, 190, 476):
+            pl = cuda_ntt.launch_plan(limbs, logn)
+            logc, logw = pl["logc"], pl["logw"]
+            logr = logn - logc
+            # every stage once: log2(R) column stages + logc chunk stages
+            assert logc == min(logn, 11) or (logc == 10 and logn > 11)
+            assert pl["chunk_blocks"] << logc == limbs << logn
+            if logr:
+                assert 3 <= logw <= 6 and logw <= logc
+                assert pl["col_blocks"] << logw == limbs << logc
+                assert pl["col_smem"] >= 4 << (logr + logw)
+            else:
+                assert pl["col_blocks"] == 0 and logw == 0
+            assert pl["chunk_smem"] >= 4 << logc
+            # within the 48 KB a block takes without opting in
+            assert max(pl["col_smem"], pl["chunk_smem"]) <= 48 * 1024
+            # >= 132 blocks (one per H100 SM) wherever the shape has them
+            if logn > 11 and limbs << (logn - 10) >= 132:
+                assert pl["chunk_blocks"] >= 132
+            if logr and limbs << 7 >= 132:
+                assert pl["col_blocks"] >= 132
+
+
 def test_kernel_rejects_bad_input(device):
     n = 1 << 8
     tabs = NttContext(nt.find_ntt_primes(28, 2, n), n, device)
@@ -60,3 +91,9 @@ def test_kernel_rejects_bad_input(device):
     with pytest.raises(ValueError):
         cuda_ntt.ntt_fwd(torch.zeros((3, n), dtype=torch.int32,
                                      device=device), tabs, rows)
+    n = 1 << 19                     # above the kernels' ring 2^18
+    big = NttContext(nt.find_ntt_primes(28, 2, n), n, device)
+    for fn in (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv):
+        with pytest.raises(ValueError, match="2\\^18"):
+            fn(torch.zeros((2, n), dtype=torch.int32, device=device), big,
+               rows)

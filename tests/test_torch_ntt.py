@@ -52,7 +52,7 @@ def test_plain_ntt_matches_jax(logn):
     the plain versions and the wrappers' CPU path."""
     n = 1 << logn
     primes = nt.find_ntt_primes(28, 5, n)
-    jc, tc = JNtt(primes, n), TNtt(primes, n)
+    jc, tc = JNtt(primes, n), TNtt(primes, n, "cpu")
     np.testing.assert_array_equal(_np(tc.psi), np.asarray(jc.psi))
     np.testing.assert_array_equal(_np(tc.ipsi_sh), np.asarray(jc.ipsi_sh))
     rng = np.random.default_rng(7)
@@ -78,7 +78,7 @@ def test_row_subset_lead_dims_match_pallas_interpret():
     per-row jnp calls), forward and inverse."""
     n = 256
     primes = nt.find_ntt_primes(28, 6, n)
-    jc, tc = JNtt(primes, n), TNtt(primes, n)
+    jc, tc = JNtt(primes, n), TNtt(primes, n, "cpu")
     rng = np.random.default_rng(3)
     sel = np.array([4, 1, 5], dtype=np.int32)
     x = _rand(rng, [primes[r] for r in sel], n, lead=(2,))      # [2, 3, n]
@@ -100,7 +100,7 @@ def test_row_subset_lead_dims_match_pallas_interpret():
 def test_wrapper_cpu_path_launches_nothing_and_checks_inputs():
     n = 256
     primes = nt.find_ntt_primes(28, 2, n)
-    tc = TNtt(primes, n)
+    tc = TNtt(primes, n, "cpu")
     rows = torch.arange(2, dtype=torch.int32)
     x = torch.zeros((2, n), dtype=torch.int32)
     cuda_ntt.reset_launch_counts()

@@ -24,7 +24,7 @@ def test_params_identical(tier):
     else:
         jcfg, tcfg = jreg.full_config(jp), treg.full_config(tp)
     assert asdict(jcfg) == asdict(tcfg)
-    J, T = JParams(jcfg), TParams(tcfg)
+    J, T = JParams(jcfg), TParams(tcfg, "cpu")
     assert J.q == T.q
     assert J.p_special == T.p_special
     assert (J.alpha, J.num_special, J.base_limbs) == \

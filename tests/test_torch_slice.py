@@ -57,7 +57,8 @@ def test_encrypted_step_port():
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     from sorting_fhe_tpu_torch.core.params import CkksConfig
     ctx = CkksContext(CkksConfig(ring_dim=1 << 10, mult_depth=4,
-                                 scale_bits=52, comp=2, dnum=2, seed=11))
+                                 scale_bits=52, comp=2, dnum=2, seed=11),
+                      device="cpu")
     v, w = np.linspace(0.1, 0.9, 4), np.linspace(0.9, 0.1, 4)
     _, got = _step(ctx, v, w)
     assert np.abs(got - _want(v, w)).max() < 1e-2
@@ -75,7 +76,7 @@ def test_encrypted_step_bit_equal_to_jax():
                seed=11)
     v, w = np.linspace(0.1, 0.9, 4), np.linspace(0.9, 0.1, 4)
     jout, jv = _step(JC(JCfg(**cfg)), v, w)
-    tout, tv = _step(TC(TCfg(**cfg)), v, w)
+    tout, tv = _step(TC(TCfg(**cfg), device="cpu"), v, w)
     np.testing.assert_array_equal(np.asarray(jout.data),
                                   residues_to_numpy(tout.data))
     np.testing.assert_array_equal(jv, tv)
@@ -98,9 +99,10 @@ def test_hybrid1_encrypted_n4_bit_equal_to_jax():
     N = 4
     vals = vector_with_min_diff(N, 0, 1, 1.0 / N, np.random.default_rng(123))
     runs = []
-    for C, Cfg, DS, S, CS in ((JC, JCfg, JDirectSort, JS, JCS),
-                              (TC, TCfg, TDirectSort, TS, TCS)):
-        ctx = C(Cfg(**cfg))
+    for C, Cfg, DS, S, CS, kw in ((JC, JCfg, JDirectSort, JS, JCS, {}),
+                                  (TC, TCfg, TDirectSort, TS, TCS,
+                                   {"device": "cpu"})):
+        ctx = C(Cfg(**cfg), **kw)
         out = DS(ctx, N).sort_hybrid1(ctx.encrypt(vals, slots=N),
                                       S(CS(3, 2, 2)))
         runs.append((out, np.asarray(ctx.decrypt(out))[:N]))
