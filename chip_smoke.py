@@ -12,30 +12,43 @@
    <commit>:sorting_fhe_tpu_torch/csrc/ntt.cu`), it is built beside them,
    in parallel, for the timing comparison of step 3 only.
 3. Kernels vs plain versions, on the card, at ring 2^17 on the real
-   119-row chain of the hybrid1 N=128 configuration, at the main path's
-   shape classes ([4, 119, n] decompose, [2, 95, n] moddown/rescale
-   forward, [95, n] decompose inverse, [2, 24, n] special primes,
-   [2, 1, n] rescale row) plus the full prefix and rows [4, 1, 5].  K1/K2
-   must be bit-equal to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints
-   for each kernel and class its launch plan, its time (CUDA events over
-   CUDA-graph replays, cycling through enough copies of the input that
-   they do not fit the 50 MB L2), its bound (bytes over 3.35 TB/s,
-   integer instructions over 132 SMs x 128 per clock x the SM's maximum
-   clock) and share of it, the plain version's time and the earlier
-   kernels' time in the same call (in turns: earlier, new, new, earlier;
-   null without the copy).
-4. Main path: the port's bench.sort_bench("hybrid1", 128, 17, trials=2) on
-   cuda:0, with the kernel launch counters reset just before it.  Requires
-   max_err < 0.01, the HEStd-128 security check, and launches of both
-   kernels in every trial.
-5. Prints the kernel record (one JSON line), the card's name and power
-   limit, and as the last line {"ok": true, "device": {...}}.  Any failed
-   check raises, so the script exits non-zero and prints no result.
+   prime chain of each path of step 4.  On the 119-row chain of hybrid1
+   N=128: its shape classes ([4, 119, n] decompose, [2, 95, n]
+   moddown/rescale forward, [95, n] decompose inverse, [2, 24, n] special
+   primes, [2, 1, n] rescale row) plus the full prefix and rows
+   [4, 1, 5].  On the 119-row chain of mehp24 N=128 (89 q primes, 30
+   special, 3 digits): [3, 119, n], [2, 89, n], [89, n], [2, 30, n],
+   [2, 1, n].  On every other chain its largest class, the top-level
+   decompose ([10, 120, n] for hybrid1 N=512).  K1/K2 must be bit-equal
+   to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
+   and class its launch plan, its time (CUDA events over CUDA-graph
+   replays, cycling through enough copies of the input that they do not
+   fit the 50 MB L2), its bound (bytes over 3.35 TB/s, integer
+   instructions over 132 SMs x 128 per clock x the SM's maximum clock)
+   and share of it, the plain version's time and the earlier kernels'
+   time in the same call (in turns: earlier, new, new, earlier; null
+   without the copy).
+4. The sorts, in this order, each through bench.sort_bench at ring 2^17,
+   HEStd-128, on cuda:0, with the kernel launch counters reset just
+   before it and read just after: hybrid1 N=128 (2 trials), mehp24 N=128
+   (2 trials; sort_fg with all 35 rotation keys resident), direct,
+   hybrid and hybrid2 N=128 (1 trial each), hybrid1 N=512 (the two-block
+   path, 2 trials).  Each requires max_err < 0.01, the HEStd-128 security
+   check, and launches of both kernels in every trial, and prints its
+   trials, op census, plaintext encodes and NTT launches per trial, the
+   peak device memory of each phase and the resident key set.
+5. Prints the kernel record (one JSON line: each kernel's time and bound
+   at the largest class of the mehp24 chain and its launches on the
+   mehp24 path, and under "paths" the same for every path), the card's
+   name and power limit, and as the last line {"ok": true, "device":
+   {...}}.  Any failed check raises, so the script exits non-zero and
+   prints no result.
 """
 
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import platform
 import subprocess
@@ -46,9 +59,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-N_SORT = 128
 RING_LOG = 17
-BIG = "[4, 119, n] decompose fwd"
+# (label, algo, N, trials), in the order they run; MAIN is this slice's
+# main path
+PATHS = (("hybrid1 N=128", "hybrid1", 128, 2),
+         ("mehp24 N=128", "mehp24", 128, 2),
+         ("direct N=128", "direct", 128, 1),
+         ("hybrid N=128", "hybrid", 128, 1),
+         ("hybrid2 N=128", "hybrid2", 128, 1),
+         ("hybrid1 N=512", "hybrid1", 512, 2))
+MAIN = "mehp24 N=128"
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -191,100 +211,185 @@ def _bound(x, rows, n: int, fwd: bool, int_rate: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
-    """Step 3: bit-equality and times of K1/K2 against the plain versions
-    (and the earlier kernels, when built) at the main path's shapes.
-    Returns per-kernel records and a table."""
+def _chain_classes(P, label: str) -> list:
+    """(name, chain rows, leading dims) of the classes checked on P's
+    chain: the hybrid1 N=128 chain's seven, the mehp24 chain's five
+    (MAIN), or the largest, the top-level decompose, on any other."""
+    nq, LP = P.nq, len(P.all_primes)
+    digits = -(-nq // P.alpha)
+    big = (f"[{digits}, {LP}, n] decompose fwd", list(range(LP)), (digits,))
+    classes = [big,
+               (f"[2, {nq}, n] moddown/rescale fwd", list(range(nq)), (2,)),
+               (f"[{nq}, n] decompose inv", list(range(nq)), ()),
+               (f"[2, {LP - nq}, n] special primes", list(range(nq, LP)),
+                (2,)),
+               ("[2, 1, n] rescale row", [nq - 1], (2,))]
+    if label == "hybrid1 N=128":
+        return classes + [(f"[{LP}, n] full prefix", list(range(LP)), ()),
+                          ("[3, n] rows [4, 1, 5]", [4, 1, 5], ())]
+    return classes if label == MAIN else [big]
+
+
+def _check_class(lib, prev, P, name, sel, lead, rng, int_rate) -> tuple:
+    """One shape class on chain P: bit-equality of K1/K2 with the plain
+    versions and inv(fwd(x)) == x, then times and bounds.  Returns the
+    table row and the largest fwd / inv errors (0 when bit-equal)."""
     from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.ntt import ntt_fwd_t, ntt_inv_t
+    tabs, n, device = P.ntt, P.n, P.device
+    rows = torch.tensor(sel, dtype=torch.int32, device=device)
+    r = rows.long()
+    x = _residues(rng, [P.all_primes[i] for i in sel], lead, n, device)
+    fwd_k = cuda_ntt.ntt_fwd(x, tabs, rows)
+    fwd_p = ntt_fwd_t(x, tabs.p[r], tabs.psi[r])
+    inv_k = cuda_ntt.ntt_inv(fwd_k, tabs, rows)
+    inv_p = ntt_inv_t(fwd_p, tabs.p[r], tabs.ipsi[r], tabs.n_inv[r])
+    torch.cuda.synchronize()
+    e_f = int((fwd_k.long() - fwd_p.long()).abs().max())
+    e_i = int((inv_k.long() - inv_p.long()).abs().max())
+    if e_f or e_i or not torch.equal(inv_k, x):
+        raise AssertionError(f"{name}: kernel != plain (fwd err {e_f}, "
+                             f"inv err {e_i}, round trip "
+                             f"{torch.equal(inv_k, x)})")
+    del fwd_p, inv_p
+    # copies of the input, so that the timed launches read and write
+    # at least twice the L2 and find nothing of their data there
+    copies = min(64, -(-L2_BYTES // (x.numel() * 4)))
+    row = {"case": name, "shape": list(x.shape[:-1]) + [n],
+           "plan": cuda_ntt.launch_plan(x.numel() // n, tabs.logn),
+           "copies": copies}
+    outs = [torch.empty_like(x) for _ in range(copies)]
+    for tag, fwd, src in (("fwd", True, x), ("inv", False, fwd_k)):
+        pairs = list(zip([src] + [src.clone()
+                                  for _ in range(copies - 1)], outs))
+        new = _launches(lib, fwd, pairs, tabs, rows)
+        if prev is not None:
+            old = _launches(prev, fwd, pairs, tabs, rows)
+            old[0]()
+            if not torch.equal(outs[0], fwd_k if fwd else x):
+                raise AssertionError(f"{name}: earlier {tag} kernel "
+                                     "disagrees")
+            # in turns: old, new, new, old
+            t_old = _kernel_ms(old)
+            t_new = _kernel_ms(new) + _kernel_ms(new)
+            t_old = (t_old + _kernel_ms(old)) / 2
+            t_new /= 2
+        else:
+            t_old, t_new = None, _kernel_ms(new)
+        if fwd:
+            plain = _time_ms(lambda: ntt_fwd_t(src, tabs.p[r],
+                                               tabs.psi[r]), 2)
+        else:
+            plain = _time_ms(lambda: ntt_inv_t(src, tabs.p[r],
+                                               tabs.ipsi[r],
+                                               tabs.n_inv[r]), 2)
+        b = _bound(src, rows, n, fwd, int_rate)
+        row[tag] = {"ms": t_new, "prev_ms": t_old, "plain_ms": plain,
+                    **b, "share": b["bound_ms"] / t_new}
+        del pairs, new
+    return row, e_f, e_i
+
+
+def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
+    """Step 3: bit-equality and times of K1/K2 against the plain versions
+    (and the earlier kernels, when built) on the chain of every path.
+    Returns, per path label, the row of its chain's largest class, and
+    the whole table."""
+    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.params import CkksParams
     from sorting_fhe_tpu_torch.registry import get_params, full_config
 
-    P = CkksParams(full_config(get_params("hybrid1", N_SORT),
-                               ring_dim=1 << RING_LOG), device)
-    tabs, n, LP, nq = P.ntt, P.n, len(P.all_primes), P.nq
     rng = np.random.default_rng(17)
     lib = cuda_ntt.build()
-    cases = [   # (name, chain rows, leading dims)
-        (BIG, list(range(LP)), (4,)),
-        ("[2, 95, n] moddown/rescale fwd", list(range(nq)), (2,)),
-        ("[95, n] decompose inv", list(range(nq)), ()),
-        ("[2, 24, n] special primes", list(range(nq, LP)), (2,)),
-        ("[2, 1, n] rescale row", [nq - 1], (2,)),
-        ("[119, n] full prefix", list(range(LP)), ()),
-        ("[3, n] rows [4, 1, 5]", [4, 1, 5], ()),
-    ]
-    max_err = {"ntt_fwd": 0, "ntt_inv": 0}
-    table = []
-    for name, sel, lead in cases:
-        rows = torch.tensor(sel, dtype=torch.int32, device=device)
-        r = rows.long()
-        x = _residues(rng, [P.all_primes[i] for i in sel], lead, n, device)
-        fwd_k = cuda_ntt.ntt_fwd(x, tabs, rows)
-        fwd_p = ntt_fwd_t(x, tabs.p[r], tabs.psi[r])
-        inv_k = cuda_ntt.ntt_inv(fwd_k, tabs, rows)
-        inv_p = ntt_inv_t(fwd_p, tabs.p[r], tabs.ipsi[r], tabs.n_inv[r])
-        torch.cuda.synchronize()
-        e_f = int((fwd_k.long() - fwd_p.long()).abs().max())
-        e_i = int((inv_k.long() - inv_p.long()).abs().max())
-        if e_f or e_i or not torch.equal(inv_k, x):
-            raise AssertionError(f"{name}: kernel != plain (fwd err {e_f}, "
-                                 f"inv err {e_i}, round trip "
-                                 f"{torch.equal(inv_k, x)})")
-        max_err["ntt_fwd"] = max(max_err["ntt_fwd"], e_f)
-        max_err["ntt_inv"] = max(max_err["ntt_inv"], e_i)
-        del fwd_p, inv_p
-        # copies of the input, so that the timed launches read and write
-        # at least twice the L2 and find nothing of their data there
-        copies = min(64, -(-L2_BYTES // (x.numel() * 4)))
-        row = {"case": name, "shape": list(x.shape[:-1]) + [n],
-               "plan": cuda_ntt.launch_plan(x.numel() // n, tabs.logn),
-               "copies": copies}
-        outs = [torch.empty_like(x) for _ in range(copies)]
-        for tag, fwd, src in (("fwd", True, x), ("inv", False, fwd_k)):
-            pairs = list(zip([src] + [src.clone()
-                                      for _ in range(copies - 1)], outs))
-            new = _launches(lib, fwd, pairs, tabs, rows)
-            if prev is not None:
-                old = _launches(prev, fwd, pairs, tabs, rows)
-                old[0]()
-                if not torch.equal(outs[0], fwd_k if fwd else x):
-                    raise AssertionError(f"{name}: earlier {tag} kernel "
-                                         "disagrees")
-                # in turns: old, new, new, old
-                t_old = _kernel_ms(old)
-                t_new = _kernel_ms(new) + _kernel_ms(new)
-                t_old = (t_old + _kernel_ms(old)) / 2
-                t_new /= 2
-            else:
-                t_old, t_new = None, _kernel_ms(new)
-            if fwd:
-                plain = _time_ms(lambda: ntt_fwd_t(src, tabs.p[r],
-                                                   tabs.psi[r]), 2)
-            else:
-                plain = _time_ms(lambda: ntt_inv_t(src, tabs.p[r],
-                                                   tabs.ipsi[r],
-                                                   tabs.n_inv[r]), 2)
-            b = _bound(src, rows, n, fwd, int_rate)
-            row[tag] = {"ms": t_new, "prev_ms": t_old, "plain_ms": plain,
-                        **b, "share": b["bound_ms"] / t_new}
-            del pairs, new
-        table.append(row)
-        del x, fwd_k, inv_k, outs
-    torch.cuda.empty_cache()
-    big = table[0]
-    recs = {}
+    chains = {}           # config -> (its first path, config, paths)
+    for label, algo, N, _ in PATHS:
+        cfg = full_config(get_params(algo, N), ring_dim=1 << RING_LOG)
+        chains.setdefault(repr(cfg), (label, cfg, []))[2].append(label)
+    table, largest = [], {}
+    for label, cfg, paths in chains.values():
+        P = CkksParams(cfg, device)
+        for i, (name, sel, lead) in enumerate(_chain_classes(P, label)):
+            row, e_f, e_i = _check_class(lib, prev, P, name, sel, lead, rng,
+                                         int_rate)
+            row["chain"] = " / ".join(paths)
+            row["max_abs_err"] = {"ntt_fwd": e_f, "ntt_inv": e_i}
+            table.append(row)
+            if i == 0:
+                largest.update({p: row for p in paths})
+        del P
+        gc.collect()
+        torch.cuda.empty_cache()
+    return largest, table
+
+
+def kernel_records(largest: dict, table: list, launches: dict) -> list:
+    """The JSON record of K1 and K2: time, bound and launches on MAIN at
+    top level, and the same for every path under "paths"."""
+    recs = []
     for key, tag, label, line in (("ntt_fwd", "fwd", "ntt_fwd (K1)", 119),
                                   ("ntt_inv", "inv", "ntt_inv (K2)", 151)):
-        t = big[tag]
-        recs[key] = {"name": label, "route": "cuda",
-                     "source": "sorting_fhe_tpu_torch/csrc/ntt.cu",
-                     "replaces": f"sorting_fhe_tpu/core/pallas_ntt.py:{line}",
-                     "max_abs_err": max_err[key], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None,
-                     "prev_ms": t["prev_ms"], "shape": "[4, 119, 2^17]"}
-    return recs, table
+        def timing(row):
+            t = row[tag]
+            return {"shape": _shape_str(row["shape"]), "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"]}
+        main = timing(largest[MAIN])
+        recs.append({
+            "name": label, "route": "cuda",
+            "source": "sorting_fhe_tpu_torch/csrc/ntt.cu",
+            "replaces": f"sorting_fhe_tpu/core/pallas_ntt.py:{line}",
+            "launches": launches[MAIN][key],
+            "max_abs_err": max(r["max_abs_err"][key] for r in table),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "prev_ms": largest[MAIN][tag]["prev_ms"],
+            "shape": main["shape"],
+            "paths": [{"path": p, "launches": launches[p][key],
+                       **timing(largest[p])} for p, *_ in PATHS]})
+    return recs
+
+
+def _shape_str(shape) -> str:
+    return "[" + ", ".join(str(d) for d in shape[:-1]) + \
+        f", 2^{shape[-1].bit_length() - 1}]"
+
+
+def run_path(label, algo, N, trials, device) -> dict:
+    """Step 4 for one path: its sort with the launch counters reset just
+    before and read just after, the gates, and its printed record.
+    Returns the NTT launches of the run."""
+    from sorting_fhe_tpu_torch import bench
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda_ntt.reset_launch_counts()
+    rec = bench.sort_bench(algo, N, RING_LOG, trials=trials, device=device)
+    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    brief = {k: rec[k] for k in ("metric", "value", "trials", "max_err",
+                                 "security_logqp", "security_ok",
+                                 "device_mem", "resident_gb", "rot_keys",
+                                 "phase_s", "op_census", "pt_encode",
+                                 "ntt_launches", "device")}
+    print(f"[sort {label}] " + json.dumps(brief), flush=True)
+    peaks = {k: round(v["peak_gb"], 2) for k, v in rec["device_mem"].items()}
+    print(f"[sort {label}] trials {rec['trials']} s, max_err "
+          f"{rec['max_err']:.3e} (log2 "
+          f"{np.log2(max(rec['max_err'], 1e-300)):.2f}), launches "
+          f"{launches}, pt encodes {[e['count'] for e in rec['pt_encode']]}"
+          f", keys {rec['rot_keys']} "
+          f"({rec['resident_gb']['rot_keys_gb']:.2f} GB), peak GB {peaks}",
+          flush=True)
+    if not (rec["max_err"] is not None and rec["max_err"] < 0.01):
+        raise AssertionError(f"{label}: sort max_err {rec['max_err']} "
+                             ">= 0.01")
+    if not rec["security_ok"]:
+        raise AssertionError(f"{label}: security check failed: {brief}")
+    for name, count in launches.items():
+        if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
+            raise AssertionError(f"{label} never launched {name} "
+                                 f"(per trial {rec['ntt_launches']})")
+    return launches
 
 
 def main() -> int:
@@ -302,8 +407,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     device = torch.device("cuda:0")
 
-    from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.core import cuda_ntt
+    t_start = time.perf_counter()
 
     # 2. build (the earlier kernels' nvcc runs alongside)
     t0 = time.perf_counter()
@@ -317,37 +422,22 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}", flush=True)
 
-    # 3. kernels vs plain versions on the card
-    recs, table = check_kernels(device, int_rate, prev)
+    # 3. kernels vs plain versions on the card, on every path's chain
+    largest, table = check_kernels(device, int_rate, prev)
     for row in table:
         print("[kernel] " + json.dumps(row), flush=True)
-
-    # 4. main path, counting launches from here on
-    cuda_ntt.reset_launch_counts()
-    rec = bench.sort_bench("hybrid1", N_SORT, RING_LOG, trials=2,
-                           device=device)
-    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
-    brief = {k: rec[k] for k in ("metric", "value", "trials", "max_err",
-                                 "security_ok", "device_mem", "phase_s",
-                                 "ntt_launches", "device")}
-    print("[sort] " + json.dumps(brief), flush=True)
-    print(f"[sort] trials {rec['trials']} s, max_err {rec['max_err']:.3e} "
-          f"(log2 {np.log2(max(rec['max_err'], 1e-300)):.2f}), "
-          f"launches {launches}, op census {rec['op_census'][-1]}",
+    print(f"[time] kernels checked at {time.perf_counter() - t_start:.1f}s",
           flush=True)
-    if not (rec["max_err"] is not None and rec["max_err"] < 0.01):
-        raise AssertionError(f"sort max_err {rec['max_err']} >= 0.01")
-    if not rec["security_ok"]:
-        raise AssertionError(f"security check failed: {rec}")
-    for name, count in launches.items():
-        if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
-            raise AssertionError(f"main path never launched {name} "
-                                 f"(per trial {rec['ntt_launches']})")
-        recs[name]["launches"] = count
+
+    # 4. the sorts, counting launches path by path
+    launches = {}
+    for label, algo, N, trials in PATHS:
+        launches[label] = run_path(label, algo, N, trials, device)
+        print(f"[time] {label} done at {time.perf_counter() - t_start:.1f}s",
+              flush=True)
 
     # 5. results
-    print(json.dumps({"kernels": [recs["ntt_fwd"], recs["ntt_inv"]]}),
+    print(json.dumps({"kernels": kernel_records(largest, table, launches)}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

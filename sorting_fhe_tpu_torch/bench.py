@@ -1,12 +1,14 @@
-"""Encrypted-sort benchmark of the torch port (direct family).
+"""Encrypted-sort benchmark of the torch port (direct family and MEHP24).
 
 Counterpart of the repository's bench.py `sort_bench`: build the
 depth-matched full-fidelity context for (algo, N) from the registry,
 generate keys, encrypt one test vector, run the sort `trials` times and
 check the first result against np.sort.  The record has the JAX bench's
 keys plus the peak device memory of each phase (setup, keys, encrypt,
-sort) from torch.cuda.max_memory_allocated, the op census of each trial,
-the NTT kernel launches of each trial and the device it ran on.
+sort) from torch.cuda.max_memory_allocated, the resident key set, the op
+census, the plaintext encodes and the NTT kernel launches of each trial,
+and the device it ran on.  Every rotation key stays resident (no key
+streaming).
 
     python -m sorting_fhe_tpu_torch.bench [algo] [N] [ring_log] [trials]
 
@@ -33,7 +35,19 @@ import torch
 # average of 10 trials (BASELINE.md table; seconds)
 BASELINE_HYBRID1 = {4: 26.69, 8: 36.25, 16: 37.03, 32: 52.14, 64: 56.93,
                     128: 74.12, 256: 93.53, 512: 178.87, 1024: 406.93}
-DIRECT_ALGOS = ("direct", "hybrid", "hybrid1", "hybrid2")
+ALGOS = ("direct", "hybrid", "hybrid1", "hybrid2", "mehp24")
+
+
+def mehp24_degrees(p) -> tuple[int, int, int, int]:
+    """sort_fg's (dg_c, df_c, dg_i, df_i) for the registry's SortParams p,
+    as the reference's Mehp24SortTest.cpp:126-137 sets them: the
+    comparison's from the sign ladder, the indicator's dg_i =
+    (log2 N + 1) // 2 with df_i = 2.  The JAX package's bench.py takes
+    dg_i = dg_c, which at N=128 (dg 3) misses the 0.01 gate even in exact
+    arithmetic (a gap of 0.017 from np.sort); this choice uses 42 of the
+    43 levels that the registry gives mehp24 N=128."""
+    c = p.sign_config().compos
+    return c.dg, c.df, (int(np.log2(p.N)) + 1) // 2, 2
 
 
 def log(msg):
@@ -73,12 +87,28 @@ def resident_gb(ctx) -> dict:
     return out
 
 
+# device kernels by class, first match of a substring of the kernel name
+KERNEL_CLASSES = (("ntt", ("chunk_pass", "col_pass")),
+                  ("copy", ("copy", "Copy")),
+                  ("gather", ("gather", "index")),
+                  ("int64 element-wise", ("long",)))
+
+
+def _kernel_class(name: str) -> str:
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
+
+
 def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
-    """Device time by kernel name from a finished torch.profiler run, and
-    the device's busy and idle share of the trial's wall time (one
-    stream: kernels do not overlap).  The top 25 names reach the NTT
-    kernels' four entries (two passes each), which a top 15 would cut
-    off."""
+    """Device time by kernel name and by class (KERNEL_CLASSES: the NTT
+    kernels; copies and casts; gathers; the remaining kernels on int64
+    tensors, the residue arithmetic of the base conversions, rescale and
+    the other ops) from a finished torch.profiler run, and the device's
+    busy and idle share of the trial's wall time (one stream: kernels do
+    not overlap).  The top 25 names reach the NTT kernels' four entries
+    (two passes each), which a top 15 would cut off."""
     from torch.autograd import DeviceType
     us, count = collections.Counter(), collections.Counter()
     for e in prof.events():
@@ -88,9 +118,16 @@ def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
     busy = sum(us.values()) / 1e6
     if not us:
         return {"device_time": "not measured (no device events traced)"}
+    by_class = collections.defaultdict(lambda: {"s": 0.0, "count": 0})
+    for k, v in us.items():
+        c = by_class[_kernel_class(k)]
+        c["s"] += v / 1e6
+        c["count"] += count[k]
+    for c in by_class.values():
+        c["share"] = c["s"] / busy
     return {"wall_s": wall_s, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall_s,
-            "kernels": sum(count.values()),
+            "kernels": sum(count.values()), "by_class": dict(by_class),
             "top": [{"name": k[:120], "s": v / 1e6, "share": v / 1e6 / busy,
                      "count": count[k]} for k, v in us.most_common(top)]}
 
@@ -102,12 +139,16 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     with `profile_dir`, trace the last trial (see profile_summary)."""
     from .core import cuda_ntt
     from .core.ckks import CkksContext
+    from .models import mehp24 as M24
     from .models.direct_sort import DirectSort
     from .registry import get_params, full_config, security_check
     from .utils.testvec import vector_with_min_diff
 
-    if algo not in DIRECT_ALGOS:
-        raise KeyError(f"not ported: {algo!r} (ported: {DIRECT_ALGOS})")
+    if algo not in ALGOS:
+        raise KeyError(f"not ported: {algo!r} (ported: {ALGOS})")
+    if algo == "mehp24" and N > 256:
+        raise KeyError("mehp24 N > 256 sorts through sort_large_array_fg, "
+                       "which this bench does not drive")
     device = torch.device(device)
     p = get_params(algo, N)
     cfg = full_config(p, ring_dim=1 << ring_log)
@@ -122,32 +163,42 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     log(f"[setup] context {secs['setup']:.1f}s: {ctx.params.describe()} "
         f"device={device} security logQP={logqp} limit={limit} ok={ok}")
 
-    # key mode as in the JAX bench: the pow-2 ladder from N >= 32
-    minimal = os.environ.get("BENCH_KEYS", "minimal" if N >= 32
-                             else "registry") == "minimal"
     _reset_peak(device)
     t0 = time.time()
-    ds = DirectSort(ctx, N, rot_indices=list(p.rotations),
-                    use_minimal_keys=minimal)
-    sort_fn = {"direct": ds.sort, "hybrid": ds.sort_hybrid,
-               "hybrid1": ds.sort_hybrid1,
-               "hybrid2": ds.sort_hybrid2}[algo]
+    if algo == "mehp24":
+        # the matrix ladders' keys (rotation_indices), made here rather
+        # than in the first trial; sort_fg finds them all present
+        M24.Mehp24(ctx, N)
+        degrees = mehp24_degrees(p)
+        sort_fn = lambda ct, cfg_sign: M24.sort_fg(ctx, ct, N, *degrees)
+        key_mode = "mehp24 ladders"
+    else:
+        # key mode as in the JAX bench: the pow-2 ladder from N >= 32
+        minimal = os.environ.get("BENCH_KEYS", "minimal" if N >= 32
+                                 else "registry") == "minimal"
+        ds = DirectSort(ctx, N, rot_indices=list(p.rotations),
+                        use_minimal_keys=minimal)
+        sort_fn = {"direct": ds.sort, "hybrid": ds.sort_hybrid,
+                   "hybrid1": ds.sort_hybrid1,
+                   "hybrid2": ds.sort_hybrid2}[algo]
+        key_mode = "minimal" if minimal else "registry"
     _sync(device)
     secs["keys"], mem["keys"] = time.time() - t0, _mem_gb(device)
-    log(f"[setup] rotation keys ({len(ctx.rot_keys)}, "
-        f"{'minimal' if minimal else 'registry'}) {secs['keys']:.1f}s "
-        f"{mem['keys']}")
+    log(f"[setup] rotation keys ({len(ctx.rot_keys)}, {key_mode}) "
+        f"{secs['keys']:.1f}s {mem['keys']}")
 
     rng = np.random.default_rng(seed)
     v = vector_with_min_diff(N, 0, 1, 1.0 / N, rng)
+    # mehp24 packs the N x N comparison matrix in one ciphertext
+    slots = N * N if algo == "mehp24" else N
     _reset_peak(device)
     t0 = time.time()
-    ct = ctx.encrypt(v, slots=N)
+    ct = ctx.encrypt(v, slots=slots)
     _sync(device)
     secs["encrypt"], mem["encrypt"] = time.time() - t0, _mem_gb(device)
     cfg_sign = p.sign_config()
 
-    times, census, launches = [], [], []
+    times, census, launches, encodes = [], [], [], []
     kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv)
     max_err = prof_summary = None
     _reset_peak(device)
@@ -172,6 +223,8 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
         census.append(dict(ctx.op_counts))
         launches.append({k.__name__: k.launches - n0
                          for k, n0 in zip(kernels, before)})
+        encodes.append({"count": ctx.pt_encode_count,
+                        "s": ctx.pt_encode_s})
         log(f"[sort] trial {t}: {dt:.2f}s mults={ctx.mult_count} "
             f"rots={ctx.rot_count} precomps={ctx.precompute_count} "
             f"pt_encode={ctx.pt_encode_s:.1f}s/{ctx.pt_encode_count} "
@@ -194,8 +247,9 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
            "trials": [round(x, 3) for x in times],
            "mults": ctx.mult_count, "rots": ctx.rot_count,
            "security_logqp": logqp, "security_ok": ok,
-           "device_mem": mem, "hbm_budget": resident_gb(ctx),
-           "phase_s": secs, "op_census": census,
+           "device_mem": mem, "resident_gb": resident_gb(ctx),
+           "rot_keys": len(ctx.rot_keys), "phase_s": secs,
+           "op_census": census, "pt_encode": encodes,
            "ntt_launches": launches,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else str(device))}

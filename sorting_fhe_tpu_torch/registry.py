@@ -221,7 +221,14 @@ def _dnum_for(depth: int, ring_dim: int, scale_bits: int = 56) -> int:
     Prime-size model: level pairs average scale_bits total (the pool
     pair-picker lands within ~2^-8), special primes ~31 bits.  Round 2's
     26/30-bit estimate picked dnum=3 for depth 46, whose real chain
-    measured logQP 3547 > 3523 (recalibrated round 3; pool-picker round 4)."""
+    measured logQP 3547 > 3523 (recalibrated round 3; pool-picker round 4).
+
+    Margin: one bit per level.  security_check sums the primes' bit
+    lengths, which runs 23-49 bits over this model at depths 30-53; the
+    JAX package's flat 31 bits let depth 49 take dnum 5 (logQP 3527) and
+    depth 53 dnum 8 (logQP 3541), both over the 3523 ceiling of ring
+    2^17, so this copy differs from it there (hybrid1 N=256 and N=512,
+    mehp24 N=1024)."""
     limit = HESTD_128_CLASSIC_LOGQP.get(ring_dim)
     best = 3
     for dnum in (3, 4, 5, 6, 8, 10, 12, 14):
@@ -230,9 +237,7 @@ def _dnum_for(depth: int, ring_dim: int, scale_bits: int = 56) -> int:
         ksp = -(-nq // dnum)
         logqp = logq + ksp * 31
         best = dnum
-        # +31 margin: measured chains run ~1 bit/level over this model
-        # (depth-56 chain measured 3559 vs modeled 3505, round-4 bench)
-        if limit is None or logqp + 31 <= limit:
+        if limit is None or logqp + depth <= limit:
             break
     return best
 
