@@ -19,7 +19,10 @@
    [4, 1, 5].  On the 119-row chain of mehp24 N=128 (89 q primes, 30
    special, 3 digits): [3, 119, n], [2, 89, n], [89, n], [2, 30, n],
    [2, 1, n].  On every other chain its largest class, the top-level
-   decompose ([10, 120, n] for hybrid1 N=512).  K1/K2 must be bit-equal
+   decompose ([10, 120, n] for hybrid1 N=512, [8, 121, n] for bitonic
+   N=4, [3, 111, n] for kway N=16); on the two bootstrapping chains also
+   the mod-raise's inverse NTT of the 3 base rows, [2, 3, n], and its
+   forward NTT over the whole chain ([2, 107, n], [2, 83, n]).  K1/K2 must be bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
    and class its launch plan, its time (CUDA events over CUDA-graph
    replays, cycling through enough copies of the input that they do not
@@ -33,13 +36,25 @@
    before it and read just after: hybrid1 N=128 (2 trials), mehp24 N=128
    (2 trials; sort_fg with all 35 rotation keys resident), direct,
    hybrid and hybrid2 N=128 (1 trial each), hybrid1 N=512 (the two-block
-   path, 2 trials).  Each requires max_err < 0.01, the HEStd-128 security
-   check, and launches of both kernels in every trial, and prints its
-   trials, op census, plaintext encodes and NTT launches per trial, the
-   peak device memory of each phase and the resident key set.
+   path, 2 trials), bitonic N=4 (2 trials) and the k-way network k=2
+   N=16 (1 trial), both bootstrapping mid-sort (EvalBootstrap, a sparse
+   secret of Hamming weight 64).  Each requires its gate (max_err < 0.01;
+   bitonic: its fixture's max error < 1.0 with no slot off by more than
+   0.1 on the 0..255 scale), the HEStd-128 security check, launches of
+   both kernels in every trial and, for bitonic and k-way, at least one
+   bootstrap in every trial; it prints its trials, op census, plaintext
+   encodes, NTT launches and bootstraps per trial, the peak device memory
+   of each phase and the resident key set.
+4b. Bootstrap phase, on the k-way N=16 chain (83 q primes, 28 special):
+   one ciphertext at 128 slots, reduced to the raise point, is
+   bootstrapped three times back to back, with a level_reduce to the
+   raise point between them; each decrypts within 1e-3 of the input
+   (tests/test_bootstrap.py's gate).  Prints the error after each
+   bootstrap, its seconds by phase and its plaintext encodes.
 5. Prints the kernel record (one JSON line: each kernel's time and bound
    at the largest class of the mehp24 chain and its launches on the
-   mehp24 path, and under "paths" the same for every path), the card's
+   mehp24 path, and under "paths" the same for every path and the
+   bootstrap phase), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.  Any failed check raises, so the script exits non-zero and
    prints no result.
@@ -67,8 +82,15 @@ PATHS = (("hybrid1 N=128", "hybrid1", 128, 2),
          ("direct N=128", "direct", 128, 1),
          ("hybrid N=128", "hybrid", 128, 1),
          ("hybrid2 N=128", "hybrid2", 128, 1),
-         ("hybrid1 N=512", "hybrid1", 512, 2))
+         ("hybrid1 N=512", "hybrid1", 512, 2),
+         ("bitonic N=4", "bitonic", 4, 2),
+         ("kway k=2 N=16", "kway", 16, 1))
 MAIN = "mehp24 N=128"
+BOOT_PATHS = ("bitonic N=4", "kway k=2 N=16")
+# step 4b: bootstraps of one 128-slot ciphertext on the k-way chain
+BOOT_PHASE = "bootstrap x3 slots=128"
+BOOT_CHAIN = "kway k=2 N=16"
+BOOT_SLOTS, BOOT_ROUNDS, BOOT_GATE = 128, 3, 1e-3
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -214,7 +236,8 @@ def _bound(x, rows, n: int, fwd: bool, int_rate: float) -> dict:
 def _chain_classes(P, label: str) -> list:
     """(name, chain rows, leading dims) of the classes checked on P's
     chain: the hybrid1 N=128 chain's seven, the mehp24 chain's five
-    (MAIN), or the largest, the top-level decompose, on any other."""
+    (MAIN), or the largest, the top-level decompose, on any other, with
+    the mod-raise's two on the bootstrapping chains."""
     nq, LP = P.nq, len(P.all_primes)
     digits = -(-nq // P.alpha)
     big = (f"[{digits}, {LP}, n] decompose fwd", list(range(LP)), (digits,))
@@ -227,6 +250,9 @@ def _chain_classes(P, label: str) -> list:
     if label == "hybrid1 N=128":
         return classes + [(f"[{LP}, n] full prefix", list(range(LP)), ()),
                           ("[3, n] rows [4, 1, 5]", [4, 1, 5], ())]
+    if label in BOOT_PATHS:
+        return [big, ("[2, 3, n] mod-raise inv", [0, 1, 2], (2,)),
+                (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,))]
     return classes if label == MAIN else [big]
 
 
@@ -316,6 +342,8 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
             table.append(row)
             if i == 0:
                 largest.update({p: row for p in paths})
+                if BOOT_CHAIN in paths:
+                    largest[BOOT_PHASE] = row
         del P
         gc.collect()
         torch.cuda.empty_cache()
@@ -345,7 +373,8 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
             "library_ms": None, "prev_ms": largest[MAIN][tag]["prev_ms"],
             "shape": main["shape"],
             "paths": [{"path": p, "launches": launches[p][key],
-                       **timing(largest[p])} for p, *_ in PATHS]})
+                       **timing(largest[p])}
+                      for p in [p for p, *_ in PATHS] + [BOOT_PHASE]]})
     return recs
 
 
@@ -367,10 +396,11 @@ def run_path(label, algo, N, trials, device) -> dict:
     launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
                 "ntt_inv": cuda_ntt.ntt_inv.launches}
     brief = {k: rec[k] for k in ("metric", "value", "trials", "max_err",
-                                 "security_logqp", "security_ok",
+                                 "gate", "security_logqp", "security_ok",
                                  "device_mem", "resident_gb", "rot_keys",
                                  "phase_s", "op_census", "pt_encode",
-                                 "ntt_launches", "device")}
+                                 "ntt_launches", "bootstraps", "device")
+             if k in rec}
     print(f"[sort {label}] " + json.dumps(brief), flush=True)
     peaks = {k: round(v["peak_gb"], 2) for k, v in rec["device_mem"].items()}
     print(f"[sort {label}] trials {rec['trials']} s, max_err "
@@ -380,15 +410,84 @@ def run_path(label, algo, N, trials, device) -> dict:
           f", keys {rec['rot_keys']} "
           f"({rec['resident_gb']['rot_keys_gb']:.2f} GB), peak GB {peaks}",
           flush=True)
-    if not (rec["max_err"] is not None and rec["max_err"] < 0.01):
-        raise AssertionError(f"{label}: sort max_err {rec['max_err']} "
-                             ">= 0.01")
+    if label in BOOT_PATHS:
+        for t, boots in enumerate(rec["bootstraps"]):
+            print(f"[sort {label}] trial {t}: {len(boots)} bootstraps: " +
+                  "; ".join(f"{b['s']:.3f}s limbs {b['limbs_in']}->"
+                            f"{b['limbs_out']}" for b in boots), flush=True)
+        if min(len(b) for b in rec["bootstraps"]) < 1:
+            raise AssertionError(f"{label}: a trial ran no bootstrap")
+    if not rec["gate"]["ok"]:
+        raise AssertionError(f"{label}: sort outside its gate "
+                             f"{rec['gate']} (max_err {rec['max_err']})")
     if not rec["security_ok"]:
         raise AssertionError(f"{label}: security check failed: {brief}")
     for name, count in launches.items():
         if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
             raise AssertionError(f"{label} never launched {name} "
                                  f"(per trial {rec['ntt_launches']})")
+    return launches
+
+
+def bootstrap_phase(device) -> dict:
+    """Step 4b: BOOT_ROUNDS bootstraps of one BOOT_SLOTS-slot ciphertext
+    on BOOT_CHAIN's chain, with the launch counters reset just before and
+    read just after.  Returns the NTT launches of the phase."""
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.core.bootstrap import Bootstrapper
+    from sorting_fhe_tpu_torch.core.ckks import CkksContext
+    from sorting_fhe_tpu_torch.registry import get_params, full_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    algo, N = next((a, n) for lb, a, n, _ in PATHS if lb == BOOT_CHAIN)
+    cfg = full_config(get_params(algo, N), ring_dim=1 << RING_LOG,
+                      secret_hw=64)
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx = CkksContext(cfg, device=device)
+    bs = Bootstrapper(ctx, BOOT_SLOTS).setup_keys()
+    torch.cuda.synchronize()
+    keys_gb = (ctx.rot_keys.resident_bytes + ctx.conj_key.nbytes
+               + ctx.relin_key.nbytes) / 1e9
+    print(f"[{BOOT_PHASE}] {ctx.params.describe()}; context and "
+          f"{len(ctx.rot_keys)} rotation keys + conjugation key "
+          f"({keys_gb:.2f} GB with relin) in "
+          f"{time.perf_counter() - t0:.1f}s; raise to {bs.raise_limbs} "
+          f"limbs, K {bs.K}, sine degree {bs._sine_deg}, BSGS {bs.G} x "
+          f"{bs.n_giant}", flush=True)
+    v = np.random.default_rng(5).uniform(-1, 1, BOOT_SLOTS)
+    ct = ctx.level_reduce(ctx.encrypt(v, slots=BOOT_SLOTS), bs.raise_limbs)
+    errs = []
+    for i in range(BOOT_ROUNDS):
+        enc0, enc_s0 = ctx.pt_encode_count, ctx.pt_encode_s
+        ctx.op_counts.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = bs.bootstrap(ct)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        err = float(np.abs(ctx.decrypt(out)[:BOOT_SLOTS] - v).max())
+        errs.append(err)
+        print(f"[{BOOT_PHASE}] " + json.dumps({
+            "bootstrap": i + 1, "max_err": err,
+            "log2_err": float(np.log2(max(err, 1e-300))), "s": dt,
+            "phase_s": bs.phase_s, "limbs": [ct.limbs, out.limbs],
+            "pt_encodes": ctx.pt_encode_count - enc0,
+            "pt_encode_s": ctx.pt_encode_s - enc_s0,
+            "op_census": dict(ctx.op_counts),
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}),
+            flush=True)
+        ct = ctx.level_reduce(out, bs.raise_limbs)
+    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    print(f"[{BOOT_PHASE}] errors {errs}, launches {launches}", flush=True)
+    del ctx, bs, ct, out
+    if not all(e < BOOT_GATE for e in errs):
+        raise AssertionError(f"{BOOT_PHASE}: an error is not below "
+                             f"{BOOT_GATE}: {errs}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{BOOT_PHASE} never launched a kernel: "
+                             f"{launches}")
     return launches
 
 
@@ -435,6 +534,9 @@ def main() -> int:
         launches[label] = run_path(label, algo, N, trials, device)
         print(f"[time] {label} done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
+    launches[BOOT_PHASE] = bootstrap_phase(device)
+    print(f"[time] {BOOT_PHASE} done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # 5. results
     print(json.dumps({"kernels": kernel_records(largest, table, launches)}),

@@ -6,9 +6,11 @@ reference each part is checked against:
   core/    CKKS runtime: number theory, RNS arithmetic (rns), NTT tables
            and plain versions (ntt), the hand-written CUDA NTT kernels
            (cuda_ntt + csrc/ntt.cu), params, keys, ckks, poly_eval,
-           interop (JAX-side arrays <-> this package's tensors)
+           bootstrap (EvalBootstrap), interop (JAX-side arrays <-> this
+           package's tensors)
   ops/     sign / compare / rotation machinery / Chebyshev coefficients
-  models/  direct_sort (hybrid1 is the ported path), mehp24 (indicator)
+  models/  direct_sort, mehp24, bitonic, kway
+  utils/   testvec, debug (recrypt_hook: CPU tests only)
   bench.py sort_bench on one CUDA device
 
 Imports torch and numpy only, never jax.  The CUDA kernels build at first

@@ -1,4 +1,5 @@
-"""Encrypted-sort benchmark of the torch port (direct family and MEHP24).
+"""Encrypted-sort benchmark of the torch port (direct family, MEHP24,
+bitonic and k-way).
 
 Counterpart of the repository's bench.py `sort_bench`: build the
 depth-matched full-fidelity context for (algo, N) from the registry,
@@ -8,10 +9,14 @@ keys plus the peak device memory of each phase (setup, keys, encrypt,
 sort) from torch.cuda.max_memory_allocated, the resident key set, the op
 census, the plaintext encodes and the NTT kernel launches of each trial,
 and the device it ran on.  Every rotation key stays resident (no key
-streaming).
+streaming).  Bitonic and k-way bootstrap mid-sort (core/bootstrap.py, a
+sparse secret of Hamming weight 64): the bootstrap keys of the sort's
+slot width are made in the keys phase, and the record gives each trial's
+bootstraps (seconds, phases, limbs before and after).
 
-    python -m sorting_fhe_tpu_torch.bench [algo] [N] [ring_log] [trials]
+    python -m sorting_fhe_tpu_torch.bench [algo] [N] [ring_log] [trials] [k]
 
+(k: the k-way network's k, default 2, N = k^M.)  It
 prints one JSON record on stdout; it needs a CUDA device (on any other
 device it exits non-zero: a CPU time is not a result of this benchmark).
 With BENCH_PROFILE=<dir> the last trial runs under torch.profiler: the
@@ -35,7 +40,14 @@ import torch
 # average of 10 trials (BASELINE.md table; seconds)
 BASELINE_HYBRID1 = {4: 26.69, 8: 36.25, 16: 37.03, 32: 52.14, 64: 56.93,
                     128: 74.12, 256: 93.53, 512: 178.87, 1024: 406.93}
-ALGOS = ("direct", "hybrid", "hybrid1", "hybrid2", "mehp24")
+ALGOS = ("direct", "hybrid", "hybrid1", "hybrid2", "mehp24", "bitonic",
+         "kway")
+# bitonic's data and gate are its reference fixture's
+# (tests/test_bootstrap_depth.py: BitonicSortTest.cpp:20-72, 88-103):
+# values in [0, 255] at least 0.01 apart; max error < 1.0 and no slot off
+# by more than 0.1.  Every other sort: [0, 1], gap 1/N, max error < 0.01.
+BITONIC_GATE = (1.0, 0.1)
+GATE = 0.01
 
 
 def mehp24_degrees(p) -> tuple[int, int, int, int]:
@@ -79,6 +91,8 @@ def resident_gb(ctx) -> dict:
     out = {
         "rot_keys_gb": ctx.rot_keys.resident_bytes / 1e9,
         "relin_key_gb": ctx.relin_key.nbytes / 1e9,
+        "conj_key_gb": (0 if ctx.conj_key is None
+                        else ctx.conj_key.nbytes) / 1e9,
         "ntt_tables_gb": sum(getattr(ntt, nm).nbytes for nm in
                              ("psi", "psi_sh", "ipsi", "ipsi_sh")) / 1e9,
         "pt_cache_gb": ctx._pt_cache_bytes / 1e9,
@@ -132,15 +146,41 @@ def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
                      "count": count[k]} for k, v in us.most_common(top)]}
 
 
+class TimedHook:
+    """A bootstrap hook that records each call: slot width, limbs before
+    and after, seconds (device synchronised) and the phases' seconds
+    (Bootstrapper.phase_s)."""
+
+    def __init__(self, hook):
+        self.hook = hook
+        self.calls: list[dict] = []
+
+    def __call__(self, ct):
+        ctx = self.hook.ctx
+        ctx.sync()
+        t0 = time.time()
+        out = self.hook(ct)
+        ctx.sync()
+        self.calls.append({
+            "slots": ct.slots, "limbs_in": ct.limbs, "limbs_out": out.limbs,
+            "s": time.time() - t0,
+            "phase_s": dict(self.hook.setup(ct.slots).phase_s)})
+        return out
+
+
 def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                device="cuda", seed: int = 42,
-               profile_dir: str | None = None) -> dict:
+               profile_dir: str | None = None, k: int = 2) -> dict:
     """Run the (algo, N) encrypted sort at ring 2^ring_log on `device`;
-    with `profile_dir`, trace the last trial (see profile_summary)."""
+    with `profile_dir`, trace the last trial (see profile_summary).  `k`
+    is the k-way network's k (N = k^M)."""
     from .core import cuda_ntt
+    from .core.bootstrap import BootstrapHook
     from .core.ckks import CkksContext
     from .models import mehp24 as M24
+    from .models.bitonic import BitonicSort
     from .models.direct_sort import DirectSort
+    from .models.kway import KWaySorter
     from .registry import get_params, full_config, security_check
     from .utils.testvec import vector_with_min_diff
 
@@ -149,9 +189,17 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     if algo == "mehp24" and N > 256:
         raise KeyError("mehp24 N > 256 sorts through sort_large_array_fg, "
                        "which this bench does not drive")
+    if algo == "kway":
+        M = round(np.log(N) / np.log(k))
+        if k ** M != N:
+            raise ValueError(f"kway: N={N} is not a power of k={k}")
     device = torch.device(device)
     p = get_params(algo, N)
-    cfg = full_config(p, ring_dim=1 << ring_log)
+    boots = algo in ("bitonic", "kway")
+    # bitonic and k-way bootstrap mid-sort: a sparse secret keeps the
+    # mod-raise integer within EvalMod's sine range (bench.py:277-279)
+    cfg = full_config(p, ring_dim=1 << ring_log,
+                      **({"secret_hw": 64} if boots else {}))
     mem, secs = {}, {}
 
     _reset_peak(device)
@@ -165,7 +213,20 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
 
     _reset_peak(device)
     t0 = time.time()
-    if algo == "mehp24":
+    hook = TimedHook(BootstrapHook(ctx)) if boots else None
+    slots = N
+    if algo == "bitonic":
+        # boots when more than 29 levels are consumed (sort_algo.h:1436)
+        sort_fn = BitonicSort(ctx, N, bootstrap_level=29,
+                              bootstrap_hook=hook).sort
+        key_mode = "bitonic network + bootstrap"
+    elif algo == "kway":
+        # checkLevelAndBoot against the chain's depth (EvalUtils.cpp:57-86)
+        ks = KWaySorter(ctx, k, M, mult_depth=p.mult_depth,
+                        bootstrap_hook=hook)
+        sort_fn, slots = ks.sort, ks.num_slots
+        key_mode = "k-way network + bootstrap"
+    elif algo == "mehp24":
         # the matrix ladders' keys (rotation_indices), made here rather
         # than in the first trial; sort_fg finds them all present
         M24.Mehp24(ctx, N)
@@ -182,15 +243,22 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                    "hybrid1": ds.sort_hybrid1,
                    "hybrid2": ds.sort_hybrid2}[algo]
         key_mode = "minimal" if minimal else "registry"
+    if boots:
+        # the bootstrap keys of the sort's slot width, made here rather
+        # than in the first trial
+        hook.hook.setup(slots)
     _sync(device)
     secs["keys"], mem["keys"] = time.time() - t0, _mem_gb(device)
     log(f"[setup] rotation keys ({len(ctx.rot_keys)}, {key_mode}) "
         f"{secs['keys']:.1f}s {mem['keys']}")
 
     rng = np.random.default_rng(seed)
-    v = vector_with_min_diff(N, 0, 1, 1.0 / N, rng)
-    # mehp24 packs the N x N comparison matrix in one ciphertext
-    slots = N * N if algo == "mehp24" else N
+    if algo == "bitonic":
+        v = vector_with_min_diff(N, 0, 255, 0.01, rng)
+    else:
+        v = vector_with_min_diff(N, 0, 1, 1.0 / N, rng)
+    if algo == "mehp24":
+        slots = N * N      # the N x N comparison matrix in one ciphertext
     _reset_peak(device)
     t0 = time.time()
     ct = ctx.encrypt(v, slots=slots)
@@ -198,9 +266,9 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     secs["encrypt"], mem["encrypt"] = time.time() - t0, _mem_gb(device)
     cfg_sign = p.sign_config()
 
-    times, census, launches, encodes = [], [], [], []
+    times, census, launches, encodes, bootstraps = [], [], [], [], []
     kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv)
-    max_err = prof_summary = None
+    max_err = gate = prof_summary = None
     _reset_peak(device)
     for t in range(trials):
         traced = profile_dir is not None and t == trials - 1
@@ -208,7 +276,9 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) if traced \
             else contextlib.nullcontext()
-        before = [k.launches for k in kernels]
+        before = [kern.launches for kern in kernels]
+        if hook is not None:
+            hook.calls = []
         with prof:
             t0 = time.time()
             out = sort_fn(ct, cfg_sign)
@@ -221,10 +291,15 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                 profile_dir, f"trace_{algo}_N{N}.json"))
             prof_summary = profile_summary(prof, dt)
         census.append(dict(ctx.op_counts))
-        launches.append({k.__name__: k.launches - n0
-                         for k, n0 in zip(kernels, before)})
+        launches.append({kern.__name__: kern.launches - n0
+                         for kern, n0 in zip(kernels, before)})
         encodes.append({"count": ctx.pt_encode_count,
                         "s": ctx.pt_encode_s})
+        if hook is not None:
+            bootstraps.append(hook.calls)
+            log(f"[sort] trial {t}: {len(hook.calls)} bootstraps " +
+                ", ".join(f"{c['s']:.2f}s {c['limbs_in']}->{c['limbs_out']}"
+                          for c in hook.calls))
         log(f"[sort] trial {t}: {dt:.2f}s mults={ctx.mult_count} "
             f"rots={ctx.rot_count} precomps={ctx.precompute_count} "
             f"pt_encode={ctx.pt_encode_s:.1f}s/{ctx.pt_encode_count} "
@@ -233,17 +308,25 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
         ctx.pt_encode_s = 0.0
         ctx.pt_encode_count = 0
         if t == 0:
-            got = ctx.decrypt(out)[:N]
-            max_err = float(np.abs(got - np.sort(v)).max())
+            err = np.abs(ctx.decrypt(out)[:N] - np.sort(v))
+            max_err = float(err.max())
+            if algo == "bitonic":
+                over = int((err > BITONIC_GATE[1]).sum())
+                gate = {"max_err_below": BITONIC_GATE[0],
+                        "slot_err_above": BITONIC_GATE[1],
+                        "slots_above": over,
+                        "ok": max_err < BITONIC_GATE[0] and over == 0}
+            else:
+                gate = {"max_err_below": GATE, "ok": max_err < GATE}
             log(f"[sort] max_err={max_err:.3e} "
-                f"(log2={np.log2(max(max_err, 1e-300)):.2f}; gate 0.01)")
+                f"(log2={np.log2(max(max_err, 1e-300)):.2f}; gate {gate})")
     mem["sort"] = _mem_gb(device)
     best = min(times)
     base = BASELINE_HYBRID1.get(N) if algo == "hybrid1" else None
     rec = {"metric": f"encrypted_sort_{algo}_N{N}_ring2e{ring_log}",
            "value": round(best, 3), "unit": "s",
            "vs_baseline": round(best / base, 4) if base else None,
-           "baseline_s": base, "max_err": max_err,
+           "baseline_s": base, "max_err": max_err, "gate": gate,
            "trials": [round(x, 3) for x in times],
            "mults": ctx.mult_count, "rots": ctx.rot_count,
            "security_logqp": logqp, "security_ok": ok,
@@ -251,6 +334,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
            "rot_keys": len(ctx.rot_keys), "phase_s": secs,
            "op_census": census, "pt_encode": encodes,
            "ntt_launches": launches,
+           **({"bootstraps": bootstraps} if boots else {}),
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else str(device))}
     if prof_summary is not None:
@@ -266,9 +350,10 @@ def main(argv: list[str]) -> int:
     N = int(argv[1]) if len(argv) > 1 else 128
     ring_log = int(argv[2]) if len(argv) > 2 else 17
     trials = int(argv[3]) if len(argv) > 3 else 2
+    k = int(argv[4]) if len(argv) > 4 else 2
     print(json.dumps(sort_bench(algo, N, ring_log, trials,
-                                profile_dir=os.environ.get("BENCH_PROFILE"))),
-          flush=True)
+                                profile_dir=os.environ.get("BENCH_PROFILE"),
+                                k=k)), flush=True)
     return 0
 
 

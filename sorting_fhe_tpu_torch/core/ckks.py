@@ -17,9 +17,13 @@ on a CUDA device, their plain versions on the CPU.
 Differences from the JAX package, none of which changes a bit: ops are
 plain functions run eagerly (no jit, no pytrees, no trace-state guards),
 every op runs at the exact limb count (no limb bucketing), and constants
-need no Shoup companions.  Not ported yet: mod_raise, conjugation,
-monomial multiplication, rotate_raw, evaluation-only contexts, and key
-streaming.
+need no Shoup companions.  Not ported yet: evaluation-only contexts and
+key streaming.
+
+One op is not bit-equal by design: mod_raise's correction count is a
+float32 sum, as in the JAX package, and a float32 sum can round the other
+way there; such a coefficient then differs by exactly +-D (the product of
+the raised primes), which the bootstrap's periodic sine absorbs.
 """
 
 from __future__ import annotations
@@ -358,6 +362,35 @@ def _kj_negate(data, p):
     return neg_mod(data, p).to(I32)
 
 
+def _kj_mod_raise(data, w, Cw, dinv, DmodR, T_lo: _LevelTables,
+                  T_hi: _LevelTables):
+    """ModRaise: [k, l0, n] NTT+Mont at modulus D = prod(q[:l0]) ->
+    [k, nq, n] at the full chain, with centered lift.
+
+    CRT extension with a float32 correction count: the plain digit values
+    xhat_i determine u = round(sum xhat_i / d_i); subtracting u*D centers
+    the lift in (-D/2, D/2).  The sum runs in float32 from i = 0 up, as
+    the JAX package's does; a misround shifts one coefficient by +-D, an
+    integer multiple of D that EvalMod's periodic sine absorbs
+    (core/bootstrap.py)."""
+    l0 = data.shape[1]
+    x = _inv_q(data, T_lo, 0, l0).to(I64)            # [k, l0, n] Mont coeff
+    xhat = x * _col(w) % _col(T_lo.q_p[:l0])         # plain [x (D/d)^-1]_d
+    xf = xhat.to(torch.float32) * _col(dinv)
+    y = xf[:, 0]
+    for i in range(1, l0):
+        y = y + xf[:, i]
+    corr = torch.round(y).to(I64)[:, None, :]        # [k, 1, n], <= l0
+    qp = _col(T_hi.q_p)
+    acc = torch.zeros((data.shape[0], T_hi.l, data.shape[2]), dtype=I64,
+                      device=data.device)
+    for i in range(l0):                              # terms < p: no overflow
+        acc += xhat[:, i:i + 1] * _col(Cw[i]) % qp
+    acc = sub_mod(acc % qp, corr * _col(DmodR) % qp, qp)
+    acc[:, :l0] = x                                  # in-digit rows exact
+    return _fwd_q(acc, T_hi, T_hi.l)
+
+
 # ===================== context =====================
 
 
@@ -384,6 +417,8 @@ class CkksContext:
             raise NotImplementedError(
                 "rotation-key streaming (rot_key_budget_mb) is not ported")
         self.rot_keys = KeyStore(None)
+        self.conj_key = None
+        self._conj_perm = None
         self._tables: dict[int, _LevelTables] = {}
         self._rs_cache: dict[int, tuple] = {}
         self._perm_cache: dict[int, torch.Tensor] = {}
@@ -855,6 +890,22 @@ class CkksContext:
         self.op_counts["rotate_fused"] += 1
         return replace(ct, data=out)
 
+    def rotate_raw(self, ct: Ciphertext, k: int) -> Ciphertext:
+        """Rotation WITHOUT the slots-period shortcut: applies the Galois
+        automorphism even when k is a multiple of ct.slots.  Required by
+        bootstrapping's subring trace, which rotates by multiples of the
+        slot period to act on the mod-raise error (the message part is
+        period-invariant but the error is dense)."""
+        kk = k % (self.n // 2)
+        if kk == 0:
+            return ct
+        assert kk in self.rot_keys, f"missing rotation key {k}"
+        T = self.tables(ct.limbs)
+        out = _kj_rotate_fused(ct.data, self.rot_keys[kk], self._perm(kk), T)
+        self.rot_count += 1
+        self.op_counts["rotate_fused"] += 1
+        return replace(ct, data=out)
+
     def fast_rotation_precompute(self, ct: Ciphertext):
         """Hoisted decomposition of c1 (EvalFastRotationPrecompute)."""
         T = self.tables(ct.limbs)
@@ -875,6 +926,26 @@ class CkksContext:
         self.op_counts["fast_rotate"] += 1
         return replace(ct, data=out)
 
+    # ---------------- conjugation ----------------
+    def gen_conj_key(self):
+        """Galois key for complex conjugation (element 2n-1)."""
+        if self.conj_key is None:
+            self.conj_key = self.keygen.gen_rotation_key(2 * self.n - 1)
+
+    def conjugate(self, ct: Ciphertext) -> Ciphertext:
+        """EvalConjugate: slot-wise complex conjugation (sigma_{2n-1})."""
+        assert self.conj_key is not None, "call gen_conj_key() first"
+        ct = self._ensure_deg1(ct)
+        if self._conj_perm is None:
+            self._conj_perm = torch.from_numpy(
+                encoding.automorphism_eval_perm(self.n, 2 * self.n - 1)
+                .astype(np.int64)).to(self.device)
+        T = self.tables(ct.limbs)
+        out = _kj_rotate_fused(ct.data, self.conj_key, self._conj_perm, T)
+        self.rot_count += 1
+        self.op_counts["rotate_fused"] += 1
+        return replace(ct, data=out)
+
     # ---------------- plaintext rotation (free: no key switch) ----------
     def rotate_plaintext(self, pt: Plaintext, r: int) -> Plaintext:
         """Slot-rotate a PLAINTEXT by r via the Galois automorphism — a pure
@@ -885,3 +956,73 @@ class CkksContext:
         self.op_counts["pt_rotate"] += 1
         return Plaintext(_kj_permute(pt.data, self._perm(kk)),
                          pt.scale, pt.slots)
+
+    # ---------------- monomial multiplication (free: no key, no level) ----
+    def mult_monomial(self, ct: Ciphertext, power: int) -> Ciphertext:
+        """Multiply by X^power (power mod 2n).  Multiplying by X^{n/2}
+        multiplies every slot by i, X^{3n/2} by -i: noiseless, depth-free
+        complex bookkeeping for bootstrap's real/imag split."""
+        power %= 2 * self.n
+        if power == 0:
+            return ct
+        limbs = ct.limbs
+        key = ("mono", power, limbs)
+        mono = self._pt_get(key)
+        if mono is None:
+            neg = power >= self.n
+            k = power - self.n if neg else power
+            rows = np.zeros((limbs, self.n), dtype=np.uint32)
+            for i in range(limbs):
+                # plain +-1 at coefficient k; _to_eval_domain applies the
+                # Montgomery factor and the forward NTT
+                rows[i, k] = (self.params.q[i] - 1) if neg else 1
+            mono = self._pt_put(key, self._to_eval_domain(rows, limbs),
+                                limbs * self.n * 4)
+        T = self.tables(limbs)
+        return replace(ct, data=_kj_pt_mul(ct.data, mono, T.q_p, T.q_rinv))
+
+    # ---------------- mod raise (bootstrap step 1) ----------------
+    def _raise_consts(self, l0: int) -> tuple:
+        """mod_raise's constants for a raise from l0 limbs, cached as
+        ("raise", l0): w [l0], Cw [l0, nq], dinv [l0] float32, DmodR [nq]."""
+        key = ("raise", l0)
+        consts = self._pt_get(key)
+        if consts is not None:
+            return consts
+        q = self.params.q
+        nq = self.params.nq
+        R = 1 << 32
+        D = self.params.q_product(l0)
+        w = np.empty(l0, dtype=np.int64)
+        Cw = np.zeros((l0, nq), dtype=np.int64)
+        dinv = np.empty(l0, dtype=np.float32)
+        for i in range(l0):
+            d = q[i]
+            dh = D // d
+            w[i] = nt.mod_inverse(dh % d, d) * nt.mod_inverse(R % d, d) % d
+            dinv[i] = np.float32(1.0 / d)
+            for r in range(nq):
+                Cw[i, r] = (dh % q[r]) * (R % q[r]) % q[r]
+        DmodR = np.array([(D % p) * (R % p) % p for p in q], dtype=np.int64)
+        consts = tuple(torch.from_numpy(a).to(self.device)
+                       for a in (w, Cw, dinv, DmodR))
+        return self._pt_put(key, consts, (2 * l0 + l0 * 2 * nq + 3 * nq) * 4)
+
+    def mod_raise(self, ct: Ciphertext) -> Ciphertext:
+        """Re-interpret a low-level ciphertext at the full modulus chain.
+
+        The output decrypts to m + D*I for the small integer polynomial I
+        (|I| bounded by the secret's Hamming weight), D = prod(q[:limbs]).
+        First step of EvalBootstrap (OpenFHE EvalBootstrap's ModRaise)."""
+        l0 = ct.limbs
+        nq = self.params.nq
+        assert l0 < nq, "already at full level"
+        w, Cw, dinv, DmodR = self._raise_consts(l0)
+        data = _kj_mod_raise(ct.data, w, Cw, dinv, DmodR, self.tables(l0),
+                             self.tables(nq))
+        return Ciphertext(data, ct.scale, 1, ct.slots)
+
+    def sync(self):
+        """Wait for the device's queued work (host timing of phases)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

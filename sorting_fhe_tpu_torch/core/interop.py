@@ -35,14 +35,17 @@ def residues_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
 
 
-def keys_to_torch(public_key, relin_key, rot_keys: dict, device="cuda"):
+def keys_to_torch(public_key, relin_key, rot_keys: dict, conj_key=None,
+                  device="cuda"):
     """JAX-side key set -> (public key as host uint64 (b, a), relin key
-    tensor, {rotation index: key tensor}).  The public key stays on the
-    host, where the Encryptor uses it.  The way back is
-    residues_to_numpy on each tensor."""
+    tensor, {rotation index: key tensor}, conjugation key tensor or None).
+    The public key stays on the host, where the Encryptor uses it.  The
+    way back is residues_to_numpy on each tensor."""
     device = resolve_device(device)
     b, a = public_key
     pk = (np.asarray(b, dtype=np.uint64), np.asarray(a, dtype=np.uint64))
     return (pk, residues_to_torch(relin_key, device),
             {int(k): residues_to_torch(v, device)
-             for k, v in rot_keys.items()})
+             for k, v in rot_keys.items()},
+            None if conj_key is None else residues_to_torch(conj_key,
+                                                            device))

@@ -103,30 +103,40 @@ class CkksParams:
             # nearest S^2/Delta — unbalanced splits like 29+27 tap the
             # dense top of the pool and keep |log2(S/Delta)| ~ 2^-10
             # down the whole chain.
-            import bisect
-            pool = [p for p in nt.ntt_prime_pool(n) if p not in avoid]
+            # Vectorised over the pool (a Python loop over it takes tens
+            # of seconds at small rings); the same float64 arithmetic and
+            # the same first-minimum tie-break as the JAX package's loop
+            # (for p1 ascending, for p2 at bisect - 1, bisect, bisect + 1:
+            # keep a pair only if strictly nearer), so the same chain.
+            pool = np.array([p for p in nt.ntt_prime_pool(n)
+                             if p not in avoid], dtype=np.int64)
+            logs = np.array([math.log2(p) for p in pool.tolist()])
+            steps = np.array([-1, 0, 1])
             for _ in range(L):
                 target = S * S / delta
                 lt = math.log2(target)
-                best = None
-                for i, p1 in enumerate(pool):
-                    ideal = target / p1
-                    if ideal < pool[0] * 0.5:
-                        break              # pool ascending: only worse
-                    if ideal >= (1 << 31):
-                        continue
-                    j = bisect.bisect_left(pool, int(ideal))
-                    for jj in (j - 1, j, j + 1):
-                        if jj < 0 or jj >= len(pool) or jj == i:
-                            continue
-                        p2 = pool[jj]
-                        err = abs(math.log2(p1) + math.log2(p2) - lt)
-                        if best is None or err < best[0]:
-                            best = (err, p1, p2)
-                assert best is not None, "NTT prime pool exhausted"
-                _, p1, p2 = best
-                pool.remove(p1)
-                pool.remove(p2)
+                ideal = target / pool.astype(np.float64)
+                # p1 ascending: past the first too-small ideal, all are
+                live = ideal >= pool[0] * 0.5
+                stop = len(pool) if live.all() else int(np.argmin(live))
+                ideal = ideal[:stop]
+                fits = ideal < (1 << 31)
+                j = np.searchsorted(pool, np.floor(np.where(fits, ideal, 0))
+                                    .astype(np.int64), side="left")
+                cand = j[:, None] + steps                   # [stop, 3]
+                valid = (fits[:, None] & (cand >= 0) & (cand < len(pool))
+                         & (cand != np.arange(stop)[:, None]))
+                cand = np.clip(cand, 0, len(pool) - 1)
+                err = np.where(valid, np.abs(logs[:stop, None] + logs[cand]
+                                             - lt), np.inf)
+                k = int(np.argmin(err)) if err.size else 0
+                assert err.size and np.isfinite(err.flat[k]), \
+                    "NTT prime pool exhausted"
+                i1, i2 = divmod(k, 3)
+                i2 = int(cand[i1, i2])
+                p1, p2 = int(pool[i1]), int(pool[i2])
+                pool = np.delete(pool, [i1, i2])
+                logs = np.delete(logs, [i1, i2])
                 # smaller prime drops second (order within level arbitrary)
                 level_primes = sorted((p1, p2), reverse=True)
                 S = S * S / (float(p1) * float(p2))
@@ -199,6 +209,14 @@ class CkksParams:
             S[limbs - comp] = S[limbs] * S[limbs] / prod
             limbs -= comp
         self.canonical_scale = S
+
+    # ---- host-side helpers ----
+    def q_product(self, num_limbs: int) -> int:
+        """Product of the first num_limbs q primes."""
+        out = 1
+        for i in range(num_limbs):
+            out *= self.q[i]
+        return out
 
     def describe(self) -> str:
         return (f"CKKS n=2^{self.n.bit_length()-1} L={self.L} "

@@ -93,9 +93,9 @@ def test_keygen_bit_equal():
     jp = jck.CkksParams(JCfg(**CFG))
     tp = tck.CkksParams(TCfg(**CFG), "cpu")
     jg, tg = JKeyGen(jp, seed=5), TKeyGen(tp, seed=5)
-    pk, relin, _ = keys_to_torch(jg.public_key,
-                                 np.asarray(jg.gen_relin_key()), {},
-                                 device="cpu")
+    pk, relin, _, _ = keys_to_torch(jg.public_key,
+                                    np.asarray(jg.gen_relin_key()), {},
+                                    device="cpu")
     for jx, tx in zip(pk, tg.public_key):
         np.testing.assert_array_equal(jx, tx)
     assert torch.equal(relin, tg.gen_relin_key())

@@ -60,8 +60,11 @@ def test_entry_points_run_on_the_cpu_when_asked():
     x = residues_to_torch(np.arange(16, dtype=np.uint32).reshape(2, 8),
                           "cpu")
     assert x.device.type == "cpu" and x.dtype == torch.int32
-    _, relin, rot = keys_to_torch((np.zeros(2), np.zeros(2)),
-                                  np.zeros((2, 8), np.uint32),
-                                  {3: np.ones((2, 8), np.uint32)}, "cpu")
+    _, relin, rot, conj = keys_to_torch((np.zeros(2), np.zeros(2)),
+                                        np.zeros((2, 8), np.uint32),
+                                        {3: np.ones((2, 8), np.uint32)},
+                                        np.ones((2, 8), np.uint32),
+                                        device="cpu")
     assert relin.device.type == "cpu" and rot[3].device.type == "cpu"
+    assert conj.device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
