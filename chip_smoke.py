@@ -12,7 +12,8 @@
    <commit>:sorting_fhe_tpu_torch/csrc/ntt.cu`), it is built beside them,
    in parallel, for the timing comparison of step 3 only.
 3. Kernels vs plain versions, on the card, at ring 2^17 on the real
-   prime chain of each path of step 4.  On the 119-row chain of hybrid1
+   prime chain of each path of steps 4, 6 and 7 (step 7 runs on hybrid1
+   N=128's chain).  On the 119-row chain of hybrid1
    N=128: its shape classes ([4, 119, n] decompose, [2, 95, n]
    moddown/rescale forward, [95, n] decompose inverse, [2, 24, n] special
    primes, [2, 1, n] rescale row) plus the full prefix and rows
@@ -20,7 +21,8 @@
    special, 3 digits): [3, 119, n], [2, 89, n], [89, n], [2, 30, n],
    [2, 1, n].  On every other chain its largest class, the top-level
    decompose ([10, 120, n] for hybrid1 N=512, [8, 121, n] for bitonic
-   N=4, [3, 111, n] for kway N=16); on the two bootstrapping chains also
+   N=4, [3, 111, n] for kway N=16, [3, 116, n] for the CLI's direct
+   N=128 at depth 42); on the two bootstrapping chains also
    the mod-raise's inverse NTT of the 3 base rows, [2, 3, n], and its
    forward NTT over the whole chain ([2, 107, n], [2, 83, n]).  K1/K2 must be bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
@@ -50,11 +52,33 @@
    bootstrapped three times back to back, with a level_reduce to the
    raise point between them; each decrypts within 1e-3 of the input
    (tests/test_bootstrap.py's gate).  Prints the error after each
-   bootstrap, its seconds by phase and its plaintext encodes.
-5. Prints the kernel record (one JSON line: each kernel's time and bound
+   bootstrap, its seconds by phase, its plaintext encodes, the device
+   memory still allocated after it and the plaintext cache's bytes.
+6. The CLI's blind sort in the reference's deployment shape (main.cpp:36:
+   DirectSort N=128, CompositeSign(4, 3, 3)) at ring 2^17, HEStd-128: the
+   client here makes the context (the registry's direct N=128 chain
+   raised by the 12 levels that (4, 3, 3) spends over (3, 3, 2)), its 30
+   rotation keys (DIRECT_SORT_ROTATIONS[128]) from a seed drawn from OS
+   entropy, writes them with serial.save_eval_material into a temporary
+   directory (printing the free space, the bytes and the seconds),
+   encrypts and writes the input, and frees its keys on the card; the
+   server, `python -m sorting_fhe_tpu_torch` in a separate process,
+   loads the files, sorts blind on the card and writes the output; the
+   client decrypts it.  Requires that the files hold public material
+   only (the .npz members are keys, and the context file names no seed:
+   the secret that a client built from it draws differs from the
+   client's), max_err < 0.01, the security check and launches of both
+   kernels in the server's sort (as the server prints them).
+7. The experiment harness: experiments.main for hybrid1 N=128, 2 trials
+   with --reuse-context, in this process.  Prints its N128_summary.txt
+   and each trial's device memory by phase (utils/memory.py) beside
+   sort_bench's for the same cell in step 4; requires max_err < 0.01 in
+   each trial and launches of both kernels.
+8. Prints the kernel record (one JSON line: each kernel's time and bound
    at the largest class of the mehp24 chain and its launches on the
-   mehp24 path, and under "paths" the same for every path and the
-   bootstrap phase), the card's
+   mehp24 path, and under "paths" the same for every path, the
+   bootstrap phase and steps 6 and 7 (the largest class of the CLI's
+   chain, and the hybrid1 N=128 chain's)), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.  Any failed check raises, so the script exits non-zero and
    prints no result.
@@ -63,11 +87,17 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
+import os
 import platform
+import re
+import secrets
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -91,6 +121,19 @@ BOOT_PATHS = ("bitonic N=4", "kway k=2 N=16")
 BOOT_PHASE = "bootstrap x3 slots=128"
 BOOT_CHAIN = "kway k=2 N=16"
 BOOT_SLOTS, BOOT_ROUNDS, BOOT_GATE = 128, 3, 1e-3
+# step 6: the reference's deployment (main.cpp:36): the CLI's blind
+# DirectSort of N=128 with its fixed CompositeSign(4, 3, 3), which spends
+# 27 levels against the registry ladder's (3, 3, 2) 15 (characterize.py,
+# the same in both packages); the chain is the registry's direct N=128
+# (depth 30) raised by those 12: the sort then spends 41 levels and ends
+# on a product not yet rescaled (the port on the CPU at ring 2^10)
+CLI_PATH = "cli direct N=128"
+CLI_ALGO, CLI_N, CLI_EXTRA_DEPTH, CLI_SEED = "direct", 128, 12, 7
+CLI_TIMEOUT_S = 600
+# step 7: the experiment harness on the main path's chain
+EXP_PATH = "experiments hybrid1 N=128"
+EXP_ALGO, EXP_N, EXP_TRIALS = "hybrid1", 128, 2
+EXP_CHAIN = "hybrid1 N=128"
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -316,6 +359,25 @@ def _check_class(lib, prev, P, name, sel, lead, rng, int_rate) -> tuple:
     return row, e_f, e_i
 
 
+def _cli_config():
+    """Step 6's chain: the registry's direct N=128 config at the depth the
+    CLI's sign needs, through full_config (so dnum follows the port's
+    one-bit-per-level rule)."""
+    from sorting_fhe_tpu_torch.registry import get_params, full_config
+    p = get_params(CLI_ALGO, CLI_N)
+    return full_config(dataclasses.replace(
+        p, mult_depth=p.mult_depth + CLI_EXTRA_DEPTH), ring_dim=1 << RING_LOG)
+
+
+def _chain_configs() -> list:
+    """(label, config) of every path's chain, in the order they run."""
+    from sorting_fhe_tpu_torch.registry import get_params, full_config
+    out = [(label, full_config(get_params(algo, N), ring_dim=1 << RING_LOG))
+           for label, algo, N, _ in PATHS]
+    chain = dict(out)
+    return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN])]
+
+
 def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
     """Step 3: bit-equality and times of K1/K2 against the plain versions
     (and the earlier kernels, when built) on the chain of every path.
@@ -323,13 +385,11 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
     the whole table."""
     from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.params import CkksParams
-    from sorting_fhe_tpu_torch.registry import get_params, full_config
 
     rng = np.random.default_rng(17)
     lib = cuda_ntt.build()
     chains = {}           # config -> (its first path, config, paths)
-    for label, algo, N, _ in PATHS:
-        cfg = full_config(get_params(algo, N), ring_dim=1 << RING_LOG)
+    for label, cfg in _chain_configs():
         chains.setdefault(repr(cfg), (label, cfg, []))[2].append(label)
     table, largest = [], {}
     for label, cfg, paths in chains.values():
@@ -374,7 +434,9 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
             "shape": main["shape"],
             "paths": [{"path": p, "launches": launches[p][key],
                        **timing(largest[p])}
-                      for p in [p for p, *_ in PATHS] + [BOOT_PHASE]]})
+                      for p in [p for p, *_ in PATHS] + [BOOT_PHASE,
+                                                         CLI_PATH,
+                                                         EXP_PATH]]})
     return recs
 
 
@@ -383,10 +445,11 @@ def _shape_str(shape) -> str:
         f", 2^{shape[-1].bit_length() - 1}]"
 
 
-def run_path(label, algo, N, trials, device) -> dict:
+def run_path(label, algo, N, trials, device) -> tuple[dict, dict]:
     """Step 4 for one path: its sort with the launch counters reset just
     before and read just after, the gates, and its printed record.
-    Returns the NTT launches of the run."""
+    Returns the NTT launches of the run and the peak device memory of
+    each phase (bench.sort_bench's device_mem)."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.core import cuda_ntt
     gc.collect()
@@ -426,7 +489,7 @@ def run_path(label, algo, N, trials, device) -> dict:
         if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
             raise AssertionError(f"{label} never launched {name} "
                                  f"(per trial {rec['ntt_launches']})")
-    return launches
+    return launches, rec["device_mem"]
 
 
 def bootstrap_phase(device) -> dict:
@@ -468,6 +531,8 @@ def bootstrap_phase(device) -> dict:
         dt = time.perf_counter() - t0
         err = float(np.abs(ctx.decrypt(out)[:BOOT_SLOTS] - v).max())
         errs.append(err)
+        # live bytes (input and output ciphertexts, keys, caches) against
+        # the allocator's peak: does what stays allocated grow?
         print(f"[{BOOT_PHASE}] " + json.dumps({
             "bootstrap": i + 1, "max_err": err,
             "log2_err": float(np.log2(max(err, 1e-300))), "s": dt,
@@ -475,7 +540,9 @@ def bootstrap_phase(device) -> dict:
             "pt_encodes": ctx.pt_encode_count - enc0,
             "pt_encode_s": ctx.pt_encode_s - enc_s0,
             "op_census": dict(ctx.op_counts),
-            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}),
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "in_use_gb": torch.cuda.memory_allocated(device) / 1e9,
+            "pt_cache_gb": ctx._pt_cache_bytes / 1e9}),
             flush=True)
         ct = ctx.level_reduce(out, bs.raise_limbs)
     launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
@@ -487,6 +554,186 @@ def bootstrap_phase(device) -> dict:
                              f"{BOOT_GATE}: {errs}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"{BOOT_PHASE} never launched a kernel: "
+                             f"{launches}")
+    return launches
+
+
+def _npz_members(path) -> list:
+    with np.load(path) as z:
+        return list(z.files)
+
+
+def cli_phase(device) -> dict:
+    """Step 6: the client here (keys, files, encryption, decryption) and
+    the server in a separate process through the CLI, with no secret
+    key.  Returns the NTT launches of the server's sort, as it prints
+    them."""
+    from sorting_fhe_tpu_torch import serial
+    from sorting_fhe_tpu_torch.bench import GATE
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.core.ckks import CkksContext
+    from sorting_fhe_tpu_torch.core.host_poly import sample_ternary
+    from sorting_fhe_tpu_torch.models.direct_sort import DIRECT_SORT_ROTATIONS
+    from sorting_fhe_tpu_torch.registry import security_check
+    from sorting_fhe_tpu_torch.utils.memory import host_rss_gb
+    from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the client's secret comes from its seed: one the server cannot know
+    cfg = dataclasses.replace(_cli_config(), seed=secrets.randbits(63))
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx = CkksContext(cfg, device=device)
+    ctx.gen_rotation_keys(DIRECT_SORT_ROTATIONS[CLI_N])
+    ctx.sync()
+    logqp, limit, sec_ok = security_check(cfg, ctx.params)
+    key_bytes = ctx.rot_keys.resident_bytes + ctx.relin_key.nbytes
+    print(f"[{CLI_PATH}] client: {ctx.params.describe()}, depth "
+          f"{cfg.mult_depth}, security logQP {logqp} <= {limit}: {sec_ok}; "
+          f"{len(ctx.rot_keys)} rotation keys + relin "
+          f"({key_bytes / 1e9:.3f} GB) in {time.perf_counter() - t0:.3f}s, "
+          f"client launches K1={cuda_ntt.ntt_fwd.launches} "
+          f"K2={cuda_ntt.ntt_inv.launches}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="cli_blind_sort_")
+    try:
+        print(f"[{CLI_PATH}] {tmp}: {shutil.disk_usage(tmp).free / 1e9:.2f}"
+              f" GB free, host RSS before writing "
+              f"{host_rss_gb():.2f} GB", flush=True)
+        t0 = time.perf_counter()
+        paths = serial.save_eval_material(tmp, ctx)
+        write_s = time.perf_counter() - t0
+        v = vector_with_min_diff(CLI_N, 0, 1, 1.0 / CLI_N,
+                                 np.random.default_rng(CLI_SEED))
+        ct_in = os.path.join(tmp, "in.npz")
+        ct_out = os.path.join(tmp, "out.npz")
+        serial.save_ciphertext(ct_in, ctx.encrypt(v, slots=CLI_N))
+        sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+        print(f"[{CLI_PATH}] wrote {sum(sizes.values()) / 1e9:.3f} GB "
+              f"({ {k: b / 1e9 for k, b in sizes.items()} } GB) in "
+              f"{write_s:.3f}s ({sum(sizes.values()) / 1e9 / write_s:.3f} "
+              f"GB/s); input ciphertext {os.path.getsize(ct_in) / 1e6:.3f}"
+              f" MB", flush=True)
+        members = {k: _npz_members(paths[k])
+                   for k in ("key_pub", "key_mult", "key_rot")}
+        if (sorted(members["key_pub"]) != ["a", "b"]
+                or members["key_mult"] != ["k"]
+                or not all(re.fullmatch(r"r\d+|conj", m)
+                           for m in members["key_rot"])):
+            raise AssertionError(f"{CLI_PATH}: unexpected members {members}")
+        # a server that builds a client from the context file (as
+        # KeyGenerator draws the secret) must not get the client's secret
+        loaded = serial.load_config(paths["cc"])
+        rebuilt = sample_ternary(loaded.ring_dim,
+                                 np.random.default_rng(loaded.seed),
+                                 loaded.secret_hw)
+        if ("seed" in json.loads(Path(paths["cc"]).read_text())
+                or np.array_equal(rebuilt, ctx.keygen.sk.s_coeffs)):
+            raise AssertionError(f"{CLI_PATH}: the context file gives "
+                                 "the client's secret away")
+        print(f"[{CLI_PATH}] files: members {members}; the context file "
+              f"names no seed, and a secret rebuilt from it differs from "
+              f"the client's in "
+              f"{int((rebuilt != ctx.keygen.sk.s_coeffs).sum())} of "
+              f"{loaded.ring_dim} coefficients", flush=True)
+        # the client keeps its secret; its keys leave the card
+        ctx.rot_keys.clear()
+        ctx.relin_key = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cmd = [sys.executable, "-m", "sorting_fhe_tpu_torch",
+               "--cc", paths["cc"], "--key_pub", paths["key_pub"],
+               "--key_mult", paths["key_mult"], "--key_rot", paths["key_rot"],
+               "--input", ct_in, "--output", ct_out,
+               "--algo", CLI_ALGO, "--N", str(CLI_N)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=CLI_TIMEOUT_S,
+                             cwd=Path(__file__).resolve().parent)
+        server_s = time.perf_counter() - t0
+        for line in res.stderr.splitlines():
+            print(f"[{CLI_PATH}] server: {line}", flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"{CLI_PATH}: the server exited "
+                                 f"{res.returncode}")
+        load = re.search(r"deserialized in ([\d.]+)s", res.stderr)
+        sort = re.search(r"sort N=\d+: ([\d.]+)s \(mults=(\d+) rots=(\d+)\)"
+                         r" launches K1=(\d+) K2=(\d+) peak ([\d.]+) GB",
+                         res.stderr)
+        if load is None or sort is None:
+            raise AssertionError(f"{CLI_PATH}: no timing lines from the "
+                                 "server")
+        t0 = time.perf_counter()
+        out = serial.load_ciphertext(ct_out, device=device)
+        read_s = time.perf_counter() - t0
+        got = ctx.decrypt(out)[:CLI_N]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float(np.abs(got - np.sort(v)).max())
+    spent = (ctx.params.nq - out.limbs) / ctx.params.comp
+    launches = {"ntt_fwd": int(sort.group(4)), "ntt_inv": int(sort.group(5))}
+    print(f"[{CLI_PATH}] " + json.dumps({
+        "max_err": err, "log2_err": float(np.log2(max(err, 1e-300))),
+        "gate": GATE, "security_logqp": logqp, "security_ok": sec_ok,
+        "depth": cfg.mult_depth, "levels_spent": spent,
+        "limbs_out": out.limbs, "server_s": server_s,
+        "server_load_s": float(load.group(1)),
+        "server_sort_s": float(sort.group(1)),
+        "mults": int(sort.group(2)), "rots": int(sort.group(3)),
+        "server_launches": launches,
+        "server_sort_peak_gb": float(sort.group(6)), "files_bytes": sizes,
+        "write_s": write_s, "output_read_s": read_s}), flush=True)
+    if not err < GATE:
+        raise AssertionError(f"{CLI_PATH}: max_err {err} not below {GATE}")
+    if not sec_ok:
+        raise AssertionError(f"{CLI_PATH}: logQP {logqp} over {limit}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{CLI_PATH}: the server's sort launched no "
+                             f"kernel: {launches}")
+    return launches
+
+
+def experiments_phase(device, bench_mem: dict) -> dict:
+    """Step 7: experiments.main in this process on the main path's chain.
+    Prints its summary and each trial's device memory by phase beside
+    bench.sort_bench's for the same cell (step 4).  Returns the NTT
+    launches of the run."""
+    from sorting_fhe_tpu_torch import experiments
+    from sorting_fhe_tpu_torch.bench import GATE
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="experiments_")
+    try:
+        cuda_ntt.reset_launch_counts()
+        (trials,) = experiments.main([
+            "--algo", EXP_ALGO, "--sizes", str(EXP_N), "--trials",
+            str(EXP_TRIALS), "--ring", str(RING_LOG), "--reuse-context",
+            "--outdir", tmp])
+        launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                    "ntt_inv": cuda_ntt.ntt_inv.launches}
+        summary = Path(tmp, f"N{EXP_N}_summary.txt").read_text()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for line in summary.splitlines():
+        print(f"[{EXP_PATH}] summary: {line}", flush=True)
+    gb = 2 ** 30 / 1e9           # the monitor's GiB -> GB
+    for i, t in enumerate(trials):
+        print(f"[{EXP_PATH}] trial {i + 1}: " + json.dumps({
+            "exec_ms": t["exec_ms"], "setup_s": t["setup_s"],
+            "max_err": t["max_err"], "mults": t["mults"], "rots": t["rots"],
+            "device_gb": {k: t[k] * gb for k in t
+                          if k.startswith("device_")},
+            "host_gb": {k: t[k] for k in ("idle_gb", "setup_gb", "peak_gb",
+                                          "average_gb")}}), flush=True)
+    print(f"[{EXP_PATH}] sort_bench's device GB for the same cell (step 4): "
+          + json.dumps({k: v["peak_gb"] for k, v in bench_mem.items()})
+          + f"; launches {launches}", flush=True)
+    bad = [t["max_err"] for t in trials if not t["max_err"] < GATE]
+    if bad or len(trials) != EXP_TRIALS:
+        raise AssertionError(f"{EXP_PATH}: max_err {bad} not below {GATE}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{EXP_PATH} never launched a kernel: "
                              f"{launches}")
     return launches
 
@@ -529,16 +776,27 @@ def main() -> int:
           flush=True)
 
     # 4. the sorts, counting launches path by path
-    launches = {}
+    launches, mems = {}, {}
     for label, algo, N, trials in PATHS:
-        launches[label] = run_path(label, algo, N, trials, device)
+        launches[label], mems[label] = run_path(label, algo, N, trials,
+                                                device)
         print(f"[time] {label} done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
     launches[BOOT_PHASE] = bootstrap_phase(device)
     print(f"[time] {BOOT_PHASE} done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
-    # 5. results
+    # 6. the CLI's blind sort from files, the server in its own process
+    launches[CLI_PATH] = cli_phase(device)
+    print(f"[time] {CLI_PATH} done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+
+    # 7. the experiment harness
+    launches[EXP_PATH] = experiments_phase(device, mems[EXP_CHAIN])
+    print(f"[time] {EXP_PATH} done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+
+    # 8. results
     print(json.dumps({"kernels": kernel_records(largest, table, launches)}),
           flush=True)
     print(card, flush=True)

@@ -10,7 +10,12 @@ reference each part is checked against:
            package's tensors)
   ops/     sign / compare / rotation machinery / Chebyshev coefficients
   models/  direct_sort, mehp24, bitonic, kway
-  utils/   testvec, debug (recrypt_hook: CPU tests only)
+  utils/   testvec, debug (recrypt_hook: CPU tests only), plain
+           (PlainContext), memory (MemoryMonitor)
+  serial.py, driver.py, __main__.py   the client/server file protocol and
+           the blind-sort CLI (python -m sorting_fhe_tpu_torch)
+  experiments.py, characterize.py     the reference's report harness and
+           sign characterizer
   bench.py sort_bench on one CUDA device
 
 Imports torch and numpy only, never jax.  The CUDA kernels build at first

@@ -36,6 +36,8 @@ import time
 import numpy as np
 import torch
 
+from .utils.memory import device_mem_gb, reset_device_peak
+
 # Reference hybrid1 averages: OpenFHE on a CPU, ring 2^17, HEStd_128_classic,
 # average of 10 trials (BASELINE.md table; seconds)
 BASELINE_HYBRID1 = {4: 26.69, 8: 36.25, 16: 37.03, 32: 52.14, 64: 56.93,
@@ -62,6 +64,77 @@ def mehp24_degrees(p) -> tuple[int, int, int, int]:
     return c.dg, c.df, (int(np.log2(p.N)) + 1) // 2, 2
 
 
+def boot_overrides(algo: str) -> dict:
+    """Config overrides of a sort: bitonic and k-way bootstrap mid-sort,
+    and a sparse secret keeps the mod-raise integer within EvalMod's
+    sine range (bench.py:277-279)."""
+    return {"secret_hw": 64} if algo in ("bitonic", "kway") else {}
+
+
+def default_minimal_keys(N: int, ring_log: int) -> bool:
+    """Compose rotations from the pow-2 ladder at N >= 32 on a
+    full-fidelity ring, as the JAX bench does."""
+    return ring_log >= 16 and N >= 32
+
+
+def build_sorter(ctx, algo: str, N: int, p, minimal_keys: bool = False,
+                 hook=None, k: int | None = None):
+    """(sort_fn(ct, sign_cfg) -> ct, slots, key mode) of the (algo, N)
+    sort on `ctx` for the registry's SortParams `p`, its keys made.  The
+    sorts that boot use `hook` (default BootstrapHook(ctx)), whose keys
+    of the sort's slot width are made here too; `k` is the k-way
+    network's k (default: kway_factorization's)."""
+    from .core.bootstrap import BootstrapHook
+    from .models import mehp24 as M24
+    from .models.bitonic import BitonicSort
+    from .models.direct_sort import DirectSort
+    from .models.kway import KWaySorter, kway_factorization
+
+    if algo in ("bitonic", "kway") and hook is None:
+        hook = BootstrapHook(ctx)
+    slots = N
+    if algo == "bitonic":
+        # boots when more than 29 levels are consumed (sort_algo.h:1436)
+        sort_fn = BitonicSort(ctx, N, rot_indices=list(p.rotations),
+                              bootstrap_level=29, bootstrap_hook=hook).sort
+        key_mode = "bitonic network + bootstrap"
+    elif algo == "kway":
+        if k is None:
+            k, M = kway_factorization(N)
+        else:
+            M = round(np.log(N) / np.log(k))
+        # checkLevelAndBoot against the chain's depth (EvalUtils.cpp:57-86)
+        ks = KWaySorter(ctx, k, M, mult_depth=p.mult_depth,
+                        bootstrap_hook=hook)
+        sort_fn, slots = ks.sort, ks.num_slots
+        key_mode = "k-way network + bootstrap"
+    elif algo == "mehp24":
+        degrees = mehp24_degrees(p)
+        if N > 256:
+            sort_fn = lambda ct, sign_cfg: M24.sort_large_array_fg(
+                ctx, ct, N, 256, *degrees)
+            slots = 256 * 256
+        else:
+            # the matrix ladders' keys (rotation_indices), made here
+            # rather than in the first sort
+            M24.Mehp24(ctx, N)
+            sort_fn = lambda ct, sign_cfg: M24.sort_fg(ctx, ct, N, *degrees)
+            slots = N * N  # the N x N comparison matrix in one ciphertext
+        key_mode = "mehp24 ladders"
+    elif algo in ("direct", "direct2n", "hybrid", "hybrid1", "hybrid2"):
+        ds = DirectSort(ctx, N, rot_indices=list(p.rotations),
+                        use_minimal_keys=minimal_keys)
+        sort_fn = {"direct": ds.sort, "direct2n": ds.sort_2n,
+                   "hybrid": ds.sort_hybrid, "hybrid1": ds.sort_hybrid1,
+                   "hybrid2": ds.sort_hybrid2}[algo]
+        key_mode = "minimal" if minimal_keys else "registry"
+    else:
+        raise ValueError(f"unknown algorithm {algo!r}")
+    if hook is not None:
+        hook.setup(slots)
+    return sort_fn, slots, key_mode
+
+
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
 
@@ -71,18 +144,10 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def _reset_peak(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-
-
 def _mem_gb(device: torch.device) -> dict:
-    """Peak and current allocated device memory since the last reset (GB);
-    empty off CUDA."""
-    if device.type != "cuda":
-        return {}
-    return {"peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
-            "in_use_gb": torch.cuda.memory_allocated(device) / 1e9}
+    """Peak and current allocated device memory since the last reset, in
+    GB (10^9 bytes); empty off CUDA."""
+    return device_mem_gb(device, unit=1e9)
 
 
 def resident_gb(ctx) -> dict:
@@ -155,6 +220,9 @@ class TimedHook:
         self.hook = hook
         self.calls: list[dict] = []
 
+    def setup(self, slots: int):
+        return self.hook.setup(slots)
+
     def __call__(self, ct):
         ctx = self.hook.ctx
         ctx.sync()
@@ -177,10 +245,6 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     from .core import cuda_ntt
     from .core.bootstrap import BootstrapHook
     from .core.ckks import CkksContext
-    from .models import mehp24 as M24
-    from .models.bitonic import BitonicSort
-    from .models.direct_sort import DirectSort
-    from .models.kway import KWaySorter
     from .registry import get_params, full_config, security_check
     from .utils.testvec import vector_with_min_diff
 
@@ -189,20 +253,15 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     if algo == "mehp24" and N > 256:
         raise KeyError("mehp24 N > 256 sorts through sort_large_array_fg, "
                        "which this bench does not drive")
-    if algo == "kway":
-        M = round(np.log(N) / np.log(k))
-        if k ** M != N:
-            raise ValueError(f"kway: N={N} is not a power of k={k}")
+    if algo == "kway" and k ** round(np.log(N) / np.log(k)) != N:
+        raise ValueError(f"kway: N={N} is not a power of k={k}")
     device = torch.device(device)
     p = get_params(algo, N)
     boots = algo in ("bitonic", "kway")
-    # bitonic and k-way bootstrap mid-sort: a sparse secret keeps the
-    # mod-raise integer within EvalMod's sine range (bench.py:277-279)
-    cfg = full_config(p, ring_dim=1 << ring_log,
-                      **({"secret_hw": 64} if boots else {}))
+    cfg = full_config(p, ring_dim=1 << ring_log, **boot_overrides(algo))
     mem, secs = {}, {}
 
-    _reset_peak(device)
+    reset_device_peak(device)
     t0 = time.time()
     ctx = CkksContext(cfg, device=device)
     _sync(device)
@@ -211,42 +270,15 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     log(f"[setup] context {secs['setup']:.1f}s: {ctx.params.describe()} "
         f"device={device} security logQP={logqp} limit={limit} ok={ok}")
 
-    _reset_peak(device)
+    reset_device_peak(device)
     t0 = time.time()
     hook = TimedHook(BootstrapHook(ctx)) if boots else None
-    slots = N
-    if algo == "bitonic":
-        # boots when more than 29 levels are consumed (sort_algo.h:1436)
-        sort_fn = BitonicSort(ctx, N, bootstrap_level=29,
-                              bootstrap_hook=hook).sort
-        key_mode = "bitonic network + bootstrap"
-    elif algo == "kway":
-        # checkLevelAndBoot against the chain's depth (EvalUtils.cpp:57-86)
-        ks = KWaySorter(ctx, k, M, mult_depth=p.mult_depth,
-                        bootstrap_hook=hook)
-        sort_fn, slots = ks.sort, ks.num_slots
-        key_mode = "k-way network + bootstrap"
-    elif algo == "mehp24":
-        # the matrix ladders' keys (rotation_indices), made here rather
-        # than in the first trial; sort_fg finds them all present
-        M24.Mehp24(ctx, N)
-        degrees = mehp24_degrees(p)
-        sort_fn = lambda ct, cfg_sign: M24.sort_fg(ctx, ct, N, *degrees)
-        key_mode = "mehp24 ladders"
-    else:
-        # key mode as in the JAX bench: the pow-2 ladder from N >= 32
-        minimal = os.environ.get("BENCH_KEYS", "minimal" if N >= 32
-                                 else "registry") == "minimal"
-        ds = DirectSort(ctx, N, rot_indices=list(p.rotations),
-                        use_minimal_keys=minimal)
-        sort_fn = {"direct": ds.sort, "hybrid": ds.sort_hybrid,
-                   "hybrid1": ds.sort_hybrid1,
-                   "hybrid2": ds.sort_hybrid2}[algo]
-        key_mode = "minimal" if minimal else "registry"
-    if boots:
-        # the bootstrap keys of the sort's slot width, made here rather
-        # than in the first trial
-        hook.hook.setup(slots)
+    # BENCH_KEYS=minimal|registry overrides the direct family's key mode
+    minimal = os.environ.get("BENCH_KEYS", "minimal" if default_minimal_keys(
+        N, ring_log) else "registry") == "minimal"
+    sort_fn, slots, key_mode = build_sorter(ctx, algo, N, p,
+                                            minimal_keys=minimal, hook=hook,
+                                            k=k)
     _sync(device)
     secs["keys"], mem["keys"] = time.time() - t0, _mem_gb(device)
     log(f"[setup] rotation keys ({len(ctx.rot_keys)}, {key_mode}) "
@@ -257,9 +289,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
         v = vector_with_min_diff(N, 0, 255, 0.01, rng)
     else:
         v = vector_with_min_diff(N, 0, 1, 1.0 / N, rng)
-    if algo == "mehp24":
-        slots = N * N      # the N x N comparison matrix in one ciphertext
-    _reset_peak(device)
+    reset_device_peak(device)
     t0 = time.time()
     ct = ctx.encrypt(v, slots=slots)
     _sync(device)
@@ -269,7 +299,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     times, census, launches, encodes, bootstraps = [], [], [], [], []
     kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv)
     max_err = gate = prof_summary = None
-    _reset_peak(device)
+    reset_device_peak(device)
     for t in range(trials):
         traced = profile_dir is not None and t == trials - 1
         prof = torch.profiler.profile(activities=[

@@ -17,8 +17,7 @@ on a CUDA device, their plain versions on the CPU.
 Differences from the JAX package, none of which changes a bit: ops are
 plain functions run eagerly (no jit, no pytrees, no trace-state guards),
 every op runs at the exact limb count (no limb bucketing), and constants
-need no Shoup companions.  Not ported yet: evaluation-only contexts and
-key streaming.
+need no Shoup companions.  Not ported yet: key streaming.
 
 One op is not bit-equal by design: mod_raise's correction count is a
 float32 sum, as in the JAX package, and a float32 sum can round the other
@@ -42,6 +41,7 @@ from .device import resolve_device
 from .params import CkksParams, CkksConfig  # noqa: F401
 from .keys import KeyGenerator, Encryptor, Decryptor
 from .keystore import KeyStore
+from .interop import keys_to_torch
 from .rns import add_mod, sub_mod, neg_mod, mont_mul
 from .cuda_ntt import ntt_fwd, ntt_inv
 
@@ -406,6 +406,27 @@ class CkksContext:
         self.decryptor = Decryptor(P, self.keygen.sk)
         self.relin_key = self.keygen.gen_relin_key()
 
+    @classmethod
+    def for_evaluation(cls, cfg: CkksConfig, public_key, relin_key,
+                       rot_keys: dict, conj_key=None,
+                       device="cuda") -> "CkksContext":
+        """Blind-evaluation (server-side) context: public material only,
+        no secret key (the reference's deserialized CryptoContext,
+        sort.h:31-74).  Keys are uint32 residue arrays, as serial.py
+        loads them; they go to `device`, and the public key stays on the
+        host as uint64 (b, a), where the Encryptor uses it.  The server
+        can encrypt, evaluate and serialize; decrypt() raises."""
+        self = cls.__new__(cls)
+        self._init_common(cfg, device)
+        self.keygen = None
+        self.decryptor = None
+        pk, self.relin_key, rot, self.conj_key = keys_to_torch(
+            public_key, relin_key, rot_keys, conj_key, self.device)
+        self.encryptor = Encryptor(self.params, pk)
+        for k, v in rot.items():
+            self.rot_keys[k] = v
+        return self
+
     def _init_common(self, cfg: CkksConfig, device="cuda"):
         # resolve first: the full chain takes seconds to build on the host
         self.device = resolve_device(device)
@@ -497,11 +518,16 @@ class CkksContext:
 
     # ---------------- key management ----------------
     def gen_rotation_keys(self, indices: list[int]):
-        """EvalRotateKeyGen equivalent: every key stays resident."""
+        """EvalRotateKeyGen equivalent: every key stays resident.  An
+        evaluation-only context cannot make keys: a missing one raises."""
         half = self.n // 2
         for k in indices:
             kk = k % half
             if kk and kk not in self.rot_keys:
+                if self.keygen is None:
+                    raise KeyError(
+                        f"evaluation-only context is missing rotation key "
+                        f"{k}: regenerate and reserialize with it")
                 g = encoding.galois_element_for_rotation(self.n, kk)
                 self.rot_keys[kk] = self.keygen.gen_rotation_key(g)
 
@@ -524,6 +550,8 @@ class CkksContext:
             self.device), self.delta, 1, slots)
 
     def decrypt(self, ct: Ciphertext, complex_out: bool = False) -> np.ndarray:
+        if self.decryptor is None:
+            raise RuntimeError("evaluation-only context has no secret key")
         # enough limbs that prod(q) > value * scale * 2^20 headroom
         bits_needed = np.log2(max(ct.scale, 1.0)) + 24
         need = 0
@@ -543,6 +571,12 @@ class CkksContext:
     def zero_like(self, ct: Ciphertext) -> Ciphertext:
         return Ciphertext(torch.zeros_like(ct.data), ct.scale, ct.noise_deg,
                           ct.slots)
+
+    def fresh_zero(self, slots: int | None = None) -> Ciphertext:
+        slots = slots or self.params.num_slots
+        z = torch.zeros((2, self.params.nq, self.n), dtype=I32,
+                        device=self.device)
+        return Ciphertext(z, self.delta, 1, slots)
 
     # ---------------- plaintext encoding ----------------
     def make_plaintext(self, values, limbs: int, scale: float,
@@ -1026,3 +1060,8 @@ class CkksContext:
         """Wait for the device's queued work (host timing of phases)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ---------------- client-side debug ----------------
+    def decrypt_debug(self, ct: Ciphertext, count: int | None = None):
+        v = self.decrypt(ct)
+        return v[: (count or ct.slots)]

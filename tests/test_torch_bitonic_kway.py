@@ -1,8 +1,8 @@
 """BitonicSort (models/bitonic.py) and the k-way network (models/kway.py)
 through the torch port.
 
-Tier-1, on the JAX package's PlainContext (exact arithmetic, no crypto):
-the port's BitonicSort (N = 4, 8, 16; the registry's sign config, the
+Tier-1, on PlainContext (exact arithmetic, no crypto; each package's
+models on its own copy): the port's BitonicSort (N = 4, 8, 16; the registry's sign config, the
 bitonic fixture's data and dual gate) and KWaySorter (k=2 M=2..4, k=3
 M=2, k=5 M=1) give exactly the JAX models' outputs with the same census
 of context calls, and a counting bootstrap hook fires at the same points
@@ -19,7 +19,7 @@ import collections
 import numpy as np
 import pytest
 
-from sorting_fhe_tpu.utils.plain import PlainContext
+from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
 from sorting_fhe_tpu import registry as jreg
 from sorting_fhe_tpu.models.bitonic import BitonicSort as JBitonic
@@ -33,31 +33,39 @@ from sorting_fhe_tpu_torch.models.bitonic import BitonicSort as TBitonic
 from sorting_fhe_tpu_torch.models.kway import KWaySorter as TKWay
 from sorting_fhe_tpu_torch.ops.sign import (SignConfig as TS,
                                             CompositeSignConfig as TCS)
+from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
 
 CENSUS_OPS = ("rotate", "mult", "square", "mult_plain", "mult_scalar",
               "add", "sub", "rsub", "make_plaintext", "rescale",
               "level_reduce")
 
 
-class _CensusContext(PlainContext):
-    """A PlainContext that counts its calls by name in `calls`, with the
-    level bookkeeping the boot triggers read (every ciphertext reports 64
-    limbs: nothing is ever consumed)."""
+def _census_class(Plain):
+    class _CensusContext(Plain):
+        """A PlainContext that counts its calls by name in `calls`, with
+        the level bookkeeping the boot triggers read (every ciphertext
+        reports 64 limbs: nothing is ever consumed)."""
 
-    def __init__(self, ring: int):
-        super().__init__(ring)
-        self.calls = collections.Counter()
-        for name in CENSUS_OPS:
-            def counted(*args, _fn=getattr(self, name), _name=name, **kw):
-                self.calls[_name] += 1
-                return _fn(*args, **kw)
-            setattr(self, name, counted)
+        def __init__(self, ring: int):
+            super().__init__(ring)
+            self.calls = collections.Counter()
+            for name in CENSUS_OPS:
+                def counted(*args, _fn=getattr(self, name), _name=name,
+                            **kw):
+                    self.calls[_name] += 1
+                    return _fn(*args, **kw)
+                setattr(self, name, counted)
 
-    @property
-    def params(self):
-        p = super().params
-        p.comp, p.base_limbs, p.L = 2, 3, 30
-        return p
+        @property
+        def params(self):
+            p = super().params
+            p.comp, p.base_limbs, p.L = 2, 3, 30
+            return p
+    return _CensusContext
+
+
+# each package's models run on its own PlainContext
+JCensus, TCensus = _census_class(JPlain), _census_class(TPlain)
 
 
 def _recorder(ctx, seen):
@@ -68,8 +76,8 @@ def _recorder(ctx, seen):
     return hook
 
 
-def _bitonic(Sort, reg, N, level=None):
-    ctx = _CensusContext(1 << 13)
+def _bitonic(Sort, reg, Census, N, level=None):
+    ctx = Census(1 << 13)
     seen = []
     hook = None if level is None else _recorder(ctx, seen)
     bs = Sort(ctx, N, bootstrap_level=level, bootstrap_hook=hook)
@@ -81,17 +89,17 @@ def _bitonic(Sort, reg, N, level=None):
 
 @pytest.mark.parametrize("N", [4, 8, 16])
 def test_bitonic_plain_matches_jax(N):
-    v, jout, jcalls, _ = _bitonic(JBitonic, jreg, N)
-    _, tout, tcalls, _ = _bitonic(TBitonic, treg, N)
+    v, jout, jcalls, _ = _bitonic(JBitonic, jreg, JCensus, N)
+    _, tout, tcalls, _ = _bitonic(TBitonic, treg, TCensus, N)
     np.testing.assert_array_equal(tout, jout)
     assert tcalls == jcalls and tcalls["rotate"] > 0
     err = np.abs(tout - np.sort(v))
     assert err.max() < BITONIC_GATE[0] and not (err > BITONIC_GATE[1]).any()
 
 
-def _kway(Sorter, S, CS, k, M, mult_depth=10 ** 6):
+def _kway(Sorter, S, CS, Census, k, M, mult_depth=10 ** 6):
     N = k ** M
-    ctx = _CensusContext(1 << 12)
+    ctx = Census(1 << 12)
     seen = []
     sorter = Sorter(ctx, k, M, mult_depth=mult_depth,
                     bootstrap_hook=_recorder(ctx, seen))
@@ -104,8 +112,8 @@ def _kway(Sorter, S, CS, k, M, mult_depth=10 ** 6):
 @pytest.mark.parametrize("k,M", [(2, 2), (2, 3), (2, 4), (3, 2), (5, 1)])
 def test_kway_plain_matches_jax(k, M):
     """Near-exact sign (3, 8, 3), as tests/test_kway.py's network test."""
-    v, jout, jcalls, _ = _kway(JKWay, JS, JCS, k, M)
-    _, tout, tcalls, _ = _kway(TKWay, TS, TCS, k, M)
+    v, jout, jcalls, _ = _kway(JKWay, JS, JCS, JCensus, k, M)
+    _, tout, tcalls, _ = _kway(TKWay, TS, TCS, TCensus, k, M)
     np.testing.assert_array_equal(tout, jout)
     assert tcalls == jcalls and tcalls["mult"] > 0
     assert np.abs(tout - np.sort(v)).max() < 1e-3
@@ -119,12 +127,14 @@ def test_boot_hook_fires_at_the_same_points(model):
     every check of k=2 fires (need 3); at depth 4, 6 of the 9 checks of
     k=3 M=2 fire (need 5) and the 3 with need 3 do not."""
     if model.startswith("bitonic"):
-        runs = [_bitonic(S, reg, 8, level=-1)
-                for S, reg in ((JBitonic, jreg), (TBitonic, treg))]
+        runs = [_bitonic(S, reg, C, 8, level=-1)
+                for S, reg, C in ((JBitonic, jreg, JCensus),
+                                  (TBitonic, treg, TCensus))]
     else:
         k, M = (2, 3) if "k=2" in model else (3, 2)
-        runs = [_kway(S, Sg, CS, k, M, mult_depth=k + 1)
-                for S, Sg, CS in ((JKWay, JS, JCS), (TKWay, TS, TCS))]
+        runs = [_kway(S, Sg, CS, C, k, M, mult_depth=k + 1)
+                for S, Sg, CS, C in ((JKWay, JS, JCS, JCensus),
+                                     (TKWay, TS, TCS, TCensus))]
     (_, _, _, jseen), (_, _, _, tseen) = runs
     assert len(tseen) == len(jseen)
     for (js, jv), (ts, tv) in zip(jseen, tseen):

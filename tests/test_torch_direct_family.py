@@ -2,8 +2,8 @@
 
 Tier-1: `sort` (direct), `sort_hybrid` and `sort_hybrid2` at N=128, and
 `sort_hybrid1` and `sort_hybrid2` at N=512 (the N > 256 two-block path),
-all at ring 2^17 with the bench's keys and sign configs, driven by the JAX
-package's PlainContext: the port's DirectSort gives exactly the JAX
+all at ring 2^17 with the bench's keys and sign configs, each package's
+DirectSort on its own PlainContext: the port's gives exactly the JAX
 DirectSort's output, with the same census of context calls, and within
 0.01 of np.sort.
 
@@ -22,7 +22,7 @@ from dataclasses import asdict
 import numpy as np
 import pytest
 
-from sorting_fhe_tpu.utils.plain import PlainContext
+from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
 from sorting_fhe_tpu import registry as jreg
 from sorting_fhe_tpu.models.direct_sort import DirectSort as JDirectSort
@@ -30,6 +30,7 @@ from sorting_fhe_tpu_torch import registry as treg
 from sorting_fhe_tpu_torch.core import params as tparams
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models.direct_sort import DirectSort as TDirectSort
+from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
 
 SORT_FN = {"direct": "sort", "hybrid": "sort_hybrid",
            "hybrid1": "sort_hybrid1", "hybrid2": "sort_hybrid2"}
@@ -39,9 +40,9 @@ CENSUS_OPS = ("rotate", "fast_rotation", "fast_rotation_precompute", "mult",
               "level_reduce")
 
 
-def _census_context(ring: int) -> PlainContext:
+def _census_context(Plain, ring: int):
     """A PlainContext that counts its calls by name in `ctx.calls`."""
-    ctx = PlainContext(ring)
+    ctx = Plain(ring)
     ctx.calls = collections.Counter()
     for name in CENSUS_OPS:
         def counted(*args, _fn=getattr(ctx, name), _name=name, **kw):
@@ -51,10 +52,10 @@ def _census_context(ring: int) -> PlainContext:
     return ctx
 
 
-def _plain_sort(DS, reg, algo, N):
+def _plain_sort(DS, reg, Plain, algo, N):
     """The bench's sort: registry keys and sign config, minimal keys."""
     p = reg.get_params(algo, N)
-    ctx = _census_context(1 << 17)
+    ctx = _census_context(Plain, 1 << 17)
     ds = DS(ctx, N, rot_indices=list(p.rotations), use_minimal_keys=True)
     vals = vector_with_min_diff(N, 0, 1, 1.0 / N, np.random.default_rng(42))
     out = getattr(ds, SORT_FN[algo])(ctx.encrypt(vals, slots=N),
@@ -66,8 +67,8 @@ def _plain_sort(DS, reg, algo, N):
     ("direct", 128), ("hybrid", 128), ("hybrid2", 128),
     ("hybrid1", 512), ("hybrid2", 512)])
 def test_plain_matches_jax(algo, N):
-    vals, jout, jcalls = _plain_sort(JDirectSort, jreg, algo, N)
-    _, tout, tcalls = _plain_sort(TDirectSort, treg, algo, N)
+    vals, jout, jcalls = _plain_sort(JDirectSort, jreg, JPlain, algo, N)
+    _, tout, tcalls = _plain_sort(TDirectSort, treg, TPlain, algo, N)
     np.testing.assert_array_equal(tout, jout)
     assert tcalls == jcalls
     assert tcalls["rotate"] > 0 and tcalls["mult"] > 0

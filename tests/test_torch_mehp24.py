@@ -1,7 +1,7 @@
 """MEHP24 (models/mehp24.py) through the torch port.
 
-Tier-1: the port's sorts driven by the JAX package's PlainContext give
-exactly the JAX module's outputs (sort_fg at the bench's N=128 ring-2^17
+Tier-1: the port's sorts, each package's module on its own PlainContext,
+give exactly the JAX module's outputs (sort_fg at the bench's N=128 ring-2^17
 geometry, sort_cheb at N=4, sort_fg_multi and sort_large_array_fg on 32
 values in blocks of 8), the rotation-key index sets are equal, and the
 matrix ladders and masks on the port's CkksContext (CPU, ring 2^10)
@@ -16,15 +16,17 @@ at N=4 give ciphertexts bit-equal to the JAX package's.
 import numpy as np
 import pytest
 
-from sorting_fhe_tpu.utils.plain import PlainContext
+from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
 from sorting_fhe_tpu.models import mehp24 as JM
 from sorting_fhe_tpu_torch import registry as treg
 from sorting_fhe_tpu_torch.bench import mehp24_degrees
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models import mehp24 as TM
+from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
 
-MODELS = (JM, TM)
+# each package's module with its own PlainContext
+MODELS = ((JM, JPlain), (TM, TPlain))
 # tests/test_bitonic_mehp24.py's encrypted ladder config
 LADDER_CFG = dict(ring_dim=1 << 10, mult_depth=4, scale_bits=52, comp=2,
                   dnum=3)
@@ -67,7 +69,7 @@ def _sort_large_32(M, ctx, v):
 ], ids=["sort_fg_n128", "sort_cheb_n4", "sort_fg_multi", "sort_large"])
 def test_sort_plain_matches_jax(run, n, ring):
     v = _vals(n, 7)
-    jax_out, port_out = (run(M, PlainContext(ring), v) for M in MODELS)
+    jax_out, port_out = (run(M, Plain(ring), v) for M, Plain in MODELS)
     np.testing.assert_array_equal(port_out, jax_out)
     assert np.abs(port_out - np.sort(v)).max() < 0.01
 
@@ -78,8 +80,8 @@ def test_sort_fg_n128_jax_bench_degrees_miss_gate():
     the reference fixture's dg_i = 4 (the port's bench) passes above."""
     assert mehp24_degrees(treg.get_params("mehp24", 128)) == (3, 2, 4, 2)
     v = _vals(128, 42)
-    jax_out, port_out = (_sort_fg_n128(M, PlainContext(1 << 17), v,
-                                       (3, 2, 3, 2)) for M in MODELS)
+    jax_out, port_out = (_sort_fg_n128(M, Plain(1 << 17), v, (3, 2, 3, 2))
+                         for M, Plain in MODELS)
     np.testing.assert_array_equal(port_out, jax_out)
     assert np.abs(port_out - np.sort(v)).max() > 0.01
 
@@ -110,7 +112,7 @@ def test_ladders_encrypted_port():
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     from sorting_fhe_tpu_torch.core.params import CkksConfig
     ctx = CkksContext(CkksConfig(**LADDER_CFG), device="cpu")
-    pctx = PlainContext(1 << 10)
+    pctx = TPlain(1 << 10)
     want = _ladders(pctx, TM)
     for name, ct in _ladders(ctx, TM).items():
         got = ctx.decrypt(ct)[:16]

@@ -1,8 +1,8 @@
 """Slice 1 as a whole: the hybrid1 sort through the torch port.
 
-Tier-1: the port's DirectSort (minimal keys) driven by the JAX package's
-PlainContext at the main path's geometry (N=128, ring 2^17) gives the
-array the JAX DirectSort gives, and one encrypted step through the port's
+Tier-1: the port's DirectSort (minimal keys) on the port's PlainContext
+at the main path's geometry (N=128, ring 2^17) gives the array the JAX
+DirectSort gives on the JAX package's, and one encrypted step through the port's
 CkksContext decrypts to the expected values.
 
 `slow` (deselected in tier-1): a homomorphic step through both contexts
@@ -13,21 +13,23 @@ bit-equal outputs and both within 0.01 of np.sort.
 import numpy as np
 import pytest
 
-from sorting_fhe_tpu.utils.plain import PlainContext
+from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
 from sorting_fhe_tpu import registry as jreg
 from sorting_fhe_tpu.models.direct_sort import DirectSort as JDirectSort
 from sorting_fhe_tpu_torch import registry as treg
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models.direct_sort import DirectSort as TDirectSort
+from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
 
 
 def test_hybrid1_n128_plain_matches_jax():
     N, ring = 128, 1 << 17
     vals = vector_with_min_diff(N, 0, 1, 1.0 / N, np.random.default_rng(42))
     outs = []
-    for DS, reg in ((JDirectSort, jreg), (TDirectSort, treg)):
-        ctx = PlainContext(ring)
+    for DS, reg, Plain in ((JDirectSort, jreg, JPlain),
+                           (TDirectSort, treg, TPlain)):
+        ctx = Plain(ring)
         ds = DS(ctx, N, use_minimal_keys=True)
         out = ds.sort_hybrid1(ctx.encrypt(vals, slots=N),
                               reg.get_params("hybrid1", N).sign_config())
