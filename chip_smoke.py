@@ -22,7 +22,9 @@
    [2, 1, n].  On every other chain its largest class, the top-level
    decompose ([10, 120, n] for hybrid1 N=512, [8, 121, n] for bitonic
    N=4, [3, 111, n] for kway N=16, [3, 116, n] for the CLI's direct
-   N=128 at depth 42); on the two bootstrapping chains also
+   N=128 at depth 42, [8, 119, n] for mehp24 N=512, whose chain also
+   gets the device keygen's class [119, n]); on the two bootstrapping
+   chains also
    the mod-raise's inverse NTT of the 3 base rows, [2, 3, n], and its
    forward NTT over the whole chain ([2, 107, n], [2, 83, n]).  K1/K2 must be bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
@@ -53,7 +55,11 @@
    raise point between them; each decrypts within 1e-3 of the input
    (tests/test_bootstrap.py's gate).  Prints the error after each
    bootstrap, its seconds by phase, its plaintext encodes, the device
-   memory still allocated after it and the plaintext cache's bytes.
+   memory still allocated after it and the plaintext cache's bytes, and
+   then (cache_bytes) the bytes reachable from each of the context's
+   caches and the Bootstrapper, the bytes that only reference cycles
+   still held (freed by the collection it runs), and the largest tensors
+   outside the caches with their holders.
 6. The CLI's blind sort in the reference's deployment shape (main.cpp:36:
    DirectSort N=128, CompositeSign(4, 3, 3)) at ring 2^17, HEStd-128: the
    client here makes the context (the registry's direct N=128 chain
@@ -74,11 +80,29 @@
    and each trial's device memory by phase (utils/memory.py) beside
    sort_bench's for the same cell in step 4; requires max_err < 0.01 in
    each trial and launches of both kernels.
+7b. Rotation-key streaming with device keygen, on the mehp24 N=512
+   chain (depth 51, dnum 8; 41 rotation keys of 0.998 GB).  (a) For
+   rotations 1, 32640 and 65280 (= -256, a split stride): the device
+   keygen's key made twice must be bit-equal, and under another seed its
+   uniform halves must differ; the device and host keygens' seconds per
+   key (device synchronised); a fresh ciphertext rotated with the
+   streamed key and with the host key must decrypt within 1e-5 of
+   np.roll.  (b) experiments.main for mehp24 N=512 (sort_large_array_fg,
+   one trial, a fresh context) with SORTING_FHE_KEY_BUDGET_MB=5120, which
+   holds 5 keys, with the launch counters reset just before and read just
+   after: requires max_err < 0.01, HEStd-128, launches of K1 and K2 in
+   the sort, more regenerations than keys and the resident keys within
+   the budget; prints setup seconds and exec ms, the regenerations and
+   the seconds in the key store's hook (synchronised), the K1 launches
+   of the keygen apart from the sort's, the device memory per phase, the
+   bytes allocated after the sort and the caches' bytes (cache_bytes).
 8. Prints the kernel record (one JSON line: each kernel's time and bound
    at the largest class of the mehp24 chain and its launches on the
    mehp24 path, and under "paths" the same for every path, the
-   bootstrap phase and steps 6 and 7 (the largest class of the CLI's
-   chain, and the hybrid1 N=128 chain's)), the card's
+   bootstrap phase and steps 6, 7 and 7b (the largest class of the CLI's
+   chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's, and for
+   the device keygen the [119, n] class with its K1 launches in 7b's
+   sort)), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.  Any failed check raises, so the script exits non-zero and
    prints no result.
@@ -99,6 +123,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +160,15 @@ CLI_TIMEOUT_S = 600
 EXP_PATH = "experiments hybrid1 N=128"
 EXP_ALGO, EXP_N, EXP_TRIALS = "hybrid1", 128, 2
 EXP_CHAIN = "hybrid1 N=128"
+# step 7b: rotation-key streaming on the mehp24 N=512 chain
+# (sort_large_array_fg: two 256-blocks, 41 rotation keys of 0.998 GB,
+# 40.9 GB in all) under the JAX harness's budget (experiments.py:90-99),
+# which holds 5 of them; device keygen checked on three of its rotations,
+# 65280 = -256 being a split stride
+STREAM_PATH = "mehp24 N=512 streamed"
+STREAM_KEYGEN = "mehp24 N=512 device keygen"
+STREAM_ALGO, STREAM_N, STREAM_BUDGET_MB = "mehp24", 512, 5120
+STREAM_ROTS, STREAM_ROT_GATE = (1, 32640, 65280), 1e-5
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -296,6 +331,8 @@ def _chain_classes(P, label: str) -> list:
     if label in BOOT_PATHS:
         return [big, ("[2, 3, n] mod-raise inv", [0, 1, 2], (2,)),
                 (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,))]
+    if label == STREAM_PATH:     # the device keygen's NTTs: every row
+        return [big, (f"[{LP}, n] keygen", list(range(LP)), ())]
     return classes if label == MAIN else [big]
 
 
@@ -369,13 +406,21 @@ def _cli_config():
         p, mult_depth=p.mult_depth + CLI_EXTRA_DEPTH), ring_dim=1 << RING_LOG)
 
 
+def _stream_config(**overrides):
+    """Step 7b's chain: the registry's mehp24 N=512 config."""
+    from sorting_fhe_tpu_torch.registry import get_params, full_config
+    return full_config(get_params(STREAM_ALGO, STREAM_N),
+                       ring_dim=1 << RING_LOG, **overrides)
+
+
 def _chain_configs() -> list:
     """(label, config) of every path's chain, in the order they run."""
     from sorting_fhe_tpu_torch.registry import get_params, full_config
     out = [(label, full_config(get_params(algo, N), ring_dim=1 << RING_LOG))
            for label, algo, N, _ in PATHS]
     chain = dict(out)
-    return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN])]
+    return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN]),
+                  (STREAM_PATH, _stream_config())]
 
 
 def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
@@ -404,6 +449,8 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
                 largest.update({p: row for p in paths})
                 if BOOT_CHAIN in paths:
                     largest[BOOT_PHASE] = row
+            if label == STREAM_PATH and name.endswith("keygen"):
+                largest[STREAM_KEYGEN] = row
         del P
         gc.collect()
         torch.cuda.empty_cache()
@@ -434,9 +481,9 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
             "shape": main["shape"],
             "paths": [{"path": p, "launches": launches[p][key],
                        **timing(largest[p])}
-                      for p in [p for p, *_ in PATHS] + [BOOT_PHASE,
-                                                         CLI_PATH,
-                                                         EXP_PATH]]})
+                      for p in [p for p, *_ in PATHS] + [
+                          BOOT_PHASE, CLI_PATH, EXP_PATH, STREAM_PATH,
+                          STREAM_KEYGEN]]})
     return recs
 
 
@@ -492,6 +539,98 @@ def run_path(label, algo, N, trials, device) -> tuple[dict, dict]:
     return launches, rec["device_mem"]
 
 
+def _storages(obj, device, skip: set, depth: int = 0) -> dict:
+    """{storage address: bytes} of the tensors on `device` reachable from
+    obj through dicts, lists, tuples, sets and object attributes, not
+    entering the objects whose ids are in `skip`."""
+    if isinstance(obj, torch.Tensor):
+        if obj.device != device:
+            return {}
+        st = obj.untyped_storage()
+        return {st.data_ptr(): st.nbytes()}
+    if depth > 6 or id(obj) in skip:
+        return {}
+    skip.add(id(obj))
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple, set)):
+        items = list(obj)
+    elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+        items = list(vars(obj).values())
+    else:
+        return {}
+    out = {}
+    for x in items:
+        out.update(_storages(x, device, skip, depth + 1))
+    return out
+
+
+def _live_tensors(device) -> dict:
+    """{storage address: (bytes, weak reference to one of its tensors)}
+    of every tensor on `device` that the garbage collector tracks."""
+    live = {}
+    with warnings.catch_warnings():    # isinstance on deprecated aliases
+        warnings.simplefilter("ignore", FutureWarning)
+        for o in gc.get_objects():
+            if isinstance(o, torch.Tensor) and o.device == device:
+                st = o.untyped_storage()
+                live.setdefault(st.data_ptr(),
+                                (st.nbytes(), weakref.ref(o)))
+    return live
+
+
+def cache_bytes(ctx, device, **holders) -> dict:
+    """GB of device memory reachable from ctx's caches, each storage
+    counted once, in the first part that reaches it: the rotation keys
+    (pinned, LRU), the relinearisation and conjugation keys, the
+    plaintext LRU's tensors, _tables, _perm_cache, _rs_cache, the
+    params' tables, the keygen's, and `holders` (e.g. a Bootstrapper);
+    then the GB allocated on the device, the GB that only reference
+    cycles still hold (freed by a collection, which this runs), the GB
+    of every tensor on the device that Python holds after it (a scan of
+    the garbage collector's objects), and the five largest tensors that
+    no part reaches, with the types of the objects that hold them."""
+    parts = {"rot_keys_pinned": ctx.rot_keys._pinned,
+             "rot_keys_lru": ctx.rot_keys._lru,
+             "relin_conj": (ctx.relin_key, ctx.conj_key, ctx._conj_perm),
+             "pt_cache": ctx._pt_cache, "tables": ctx._tables,
+             "perm_cache": ctx._perm_cache, "rs_cache": ctx._rs_cache,
+             "params": ctx.params, "keygen": ctx.keygen, **holders}
+    counted, out = set(), {}
+    for name, obj in parts.items():
+        st = _storages(obj, device, {id(ctx)})
+        out[name] = sum(b for p, b in st.items() if p not in counted) / 1e9
+        counted |= st.keys()
+    out["caches_gb"] = sum(out.values())
+    cuda = device.type == "cuda"
+    if cuda:
+        out["allocated_gb"] = torch.cuda.memory_allocated(device) / 1e9
+    # tensors held only by reference cycles that the collector has not
+    # freed yet: what the scan finds before a collection and not after
+    before = sum(b for b, _ in _live_tensors(device).values())
+    gc.collect()
+    live = _live_tensors(device)
+    out["python_tensors_gb"] = sum(b for b, _ in live.values()) / 1e9
+    out["cyclic_garbage_gb"] = before / 1e9 - out["python_tensors_gb"]
+    if cuda:
+        out["allocated_after_gc_gb"] = \
+            torch.cuda.memory_allocated(device) / 1e9
+    others = sorted((v for p, v in live.items() if p not in counted),
+                    key=lambda v: -v[0])
+    out["outside_caches_gb"] = sum(b for b, _ in others) / 1e9
+    here, largest = sys._getframe(), []
+    for b, ref in others[:5]:
+        t = ref()
+        if t is not None:
+            largest.append({"gb": b / 1e9, "shape": list(t.shape),
+                            "dtype": str(t.dtype), "held_by": sorted(
+                                {type(r).__name__ for r in
+                                 gc.get_referrers(t) if r is not here})})
+        t = None
+    out["largest_outside"] = largest
+    return out
+
+
 def bootstrap_phase(device) -> dict:
     """Step 4b: BOOT_ROUNDS bootstraps of one BOOT_SLOTS-slot ciphertext
     on BOOT_CHAIN's chain, with the launch counters reset just before and
@@ -544,6 +683,9 @@ def bootstrap_phase(device) -> dict:
             "in_use_gb": torch.cuda.memory_allocated(device) / 1e9,
             "pt_cache_gb": ctx._pt_cache_bytes / 1e9}),
             flush=True)
+        print(f"[{BOOT_PHASE}] caches after bootstrap {i + 1}: "
+              + json.dumps(cache_bytes(ctx, device, bootstrapper=bs)),
+              flush=True)
         ct = ctx.level_reduce(out, bs.raise_limbs)
     launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
                 "ntt_inv": cuda_ntt.ntt_inv.launches}
@@ -738,6 +880,174 @@ def experiments_phase(device, bench_mem: dict) -> dict:
     return launches
 
 
+def _timed(fn, *args):
+    """(fn(*args), seconds), the device synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def keygen_phase(device):
+    """Step 7b (a): the device keygen on the mehp24 N=512 chain, for each
+    rotation of STREAM_ROTS: a key made twice must be equal bit for bit,
+    and the key of the same rotation under another seed must differ (its
+    uniform halves); the device keygen's and the host keygen's seconds
+    per key; a fresh ciphertext rotated with the streamed key and with
+    the host key must both decrypt within STREAM_ROT_GATE of np.roll."""
+    from sorting_fhe_tpu_torch.core import cuda_ntt, encoding
+    from sorting_fhe_tpu_torch.core.ckks import CkksContext
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _stream_config(rot_key_budget_mb=STREAM_BUDGET_MB)
+    t0 = time.perf_counter()
+    ctx = CkksContext(cfg, device=device)
+    other = CkksContext(dataclasses.replace(cfg, seed=cfg.seed + 1),
+                        device=device)
+    torch.cuda.synchronize()
+    print(f"[{STREAM_KEYGEN}] {ctx.params.describe()}; two contexts "
+          f"(seeds {cfg.seed}, {cfg.seed + 1}) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    slots = ctx.params.num_slots
+    v = np.random.default_rng(9).uniform(-1, 1, slots)
+    ct = ctx.encrypt(v, slots=slots)
+    rows, k1 = [], 0
+    for k in (r % slots for r in STREAM_ROTS):
+        g = encoding.galois_element_for_rotation(ctx.n, k)
+        n0 = cuda_ntt.ntt_fwd.launches
+        first, dev_s = _timed(ctx.keygen.gen_rotation_key_dev, g)
+        again, dev2_s = _timed(ctx.keygen.gen_rotation_key_dev, g)
+        k1 += cuda_ntt.ntt_fwd.launches - n0
+        seeded = other.keygen.gen_rotation_key_dev(g)
+        host, host_s = _timed(ctx.keygen.gen_rotation_key, g)
+        if not torch.equal(first, again):
+            raise AssertionError(f"{STREAM_KEYGEN}: rotation {k}: the key "
+                                 "made again differs")
+        if torch.equal(first[:, 1], seeded[:, 1]):
+            raise AssertionError(f"{STREAM_KEYGEN}: rotation {k}: another "
+                                 "seed gives the same key")
+        del again, seeded
+        want = np.roll(v, -k)
+        ctx.gen_rotation_keys([k])                 # registered only
+        regens = ctx.rot_keys.regen_count
+        err_dev = float(np.abs(ctx.decrypt(ctx.rotate(ct, k)) - want).max())
+        if ctx.rot_keys.regen_count != regens + 1 or not torch.equal(
+                ctx.rot_keys[k], first):
+            raise AssertionError(f"{STREAM_KEYGEN}: rotation {k} did not "
+                                 "go through the store's device key")
+        ctx.rot_keys[k] = host                     # pinned for one rotation
+        err_host = float(np.abs(ctx.decrypt(ctx.rotate(ct, k)) - want).max())
+        rows.append({"rotation": k, "galois": g, "device_s": dev_s,
+                     "device_again_s": dev2_s, "host_s": host_s,
+                     "max_err_streamed": err_dev, "max_err_host": err_host,
+                     "key_gb": first.nbytes / 1e9})
+        del ctx.rot_keys[k], first, host
+        print(f"[{STREAM_KEYGEN}] " + json.dumps(rows[-1]), flush=True)
+    del ctx, other, ct
+    print(f"[{STREAM_KEYGEN}] K1 launches of the device keygen: {k1} "
+          f"({len(STREAM_ROTS) * 2} keys)", flush=True)
+    bad = [r for r in rows if not max(r["max_err_streamed"],
+                                      r["max_err_host"]) < STREAM_ROT_GATE]
+    if bad:
+        raise AssertionError(f"{STREAM_KEYGEN}: rotation error not below "
+                             f"{STREAM_ROT_GATE}: {bad}")
+    if k1 <= 0 and device.type == "cuda":
+        raise AssertionError(f"{STREAM_KEYGEN}: the device keygen never "
+                             "launched K1")
+
+
+def stream_phase(device) -> tuple[dict, dict]:
+    """Step 7b (b): experiments.main for mehp24 N=512 (one trial, a fresh
+    context) with SORTING_FHE_KEY_BUDGET_MB=STREAM_BUDGET_MB, with the
+    launch counters reset just before and read just after, the context's
+    key-store hook timed (device synchronised) and its caches' bytes read
+    when the trial releases them.  Requires the 0.01 gate, HEStd-128,
+    launches of K1 and K2 in the sort, more regenerations than keys and
+    the keys' resident bytes within the budget.  Returns the NTT
+    launches of the run and the K1 launches of its keygen."""
+    from sorting_fhe_tpu_torch import experiments
+    from sorting_fhe_tpu_torch.bench import GATE, KEY_BUDGET_ENV
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.core.ckks import CkksContext
+    gc.collect()
+    torch.cuda.empty_cache()
+    hook = {"calls": 0, "s": 0.0, "ntt_fwd": 0}
+    regen, release = CkksContext._regen_rot_key, experiments._release
+
+    def timed_regen(ctx, kk):
+        n0 = cuda_ntt.ntt_fwd.launches
+        key, dt = _timed(regen, ctx, kk)
+        hook["calls"] += 1
+        hook["s"] += dt
+        hook["ntt_fwd"] += cuda_ntt.ntt_fwd.launches - n0
+        return key
+
+    def read_then_release(ctx):
+        hook["caches"] = cache_bytes(ctx, device)
+        release(ctx)
+
+    tmp = tempfile.mkdtemp(prefix="experiments_stream_")
+    env = os.environ.get(KEY_BUDGET_ENV)
+    os.environ[KEY_BUDGET_ENV] = str(STREAM_BUDGET_MB)
+    CkksContext._regen_rot_key = timed_regen
+    experiments._release = read_then_release
+    try:
+        cuda_ntt.reset_launch_counts()
+        (trials,) = experiments.main([
+            "--algo", STREAM_ALGO, "--sizes", str(STREAM_N), "--trials", "1",
+            "--ring", str(RING_LOG), "--outdir", tmp,
+            *(["--cpu"] if device.type == "cpu" else [])])
+        launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                    "ntt_inv": cuda_ntt.ntt_inv.launches}
+    finally:
+        CkksContext._regen_rot_key = regen
+        experiments._release = release
+        if env is None:
+            del os.environ[KEY_BUDGET_ENV]
+        else:
+            os.environ[KEY_BUDGET_ENV] = env
+        shutil.rmtree(tmp, ignore_errors=True)
+    (t,) = trials
+    gb = 2 ** 30 / 1e9           # the monitor's GiB -> GB
+    budget = STREAM_BUDGET_MB << 20
+    sort_k1 = t["ntt_launches"]["ntt_fwd"] - hook["ntt_fwd"]
+    print(f"[{STREAM_PATH}] " + json.dumps({
+        "setup_s": t["setup_s"], "exec_ms": t["exec_ms"],
+        "max_err": t["max_err"],
+        "log2_err": float(np.log2(max(t["max_err"], 1e-300))),
+        "security_logqp": t["logqp"], "security_ok": t["sec_ok"],
+        "mults": t["mults"], "rots": t["rots"], "rot_keys": t["rot_keys"],
+        "key_budget_mb": t["key_budget_mb"], "regens": t["key_regens"],
+        "regen_hook_calls": hook["calls"], "regen_hook_s": hook["s"],
+        "keygen_ntt_fwd": hook["ntt_fwd"],
+        "sort_ntt_launches": t["ntt_launches"],
+        "sort_ntt_fwd_without_keygen": sort_k1,
+        "resident_key_gb": t["rot_keys_resident_bytes"] / 1e9,
+        "budget_gb": budget / 1e9,
+        "device_gb": {k: t[k] * gb for k in t if k.startswith("device_")},
+        "allocated_after_sort_gb": t.get("device_end_gb", 0) * gb,
+        "run_launches": launches}), flush=True)
+    print(f"[{STREAM_PATH}] caches at release: "
+          + json.dumps(hook["caches"]), flush=True)
+    if not t["max_err"] < GATE:
+        raise AssertionError(f"{STREAM_PATH}: max_err {t['max_err']} not "
+                             f"below {GATE}")
+    if not t["sec_ok"]:
+        raise AssertionError(f"{STREAM_PATH}: logQP {t['logqp']} over the "
+                             "HEStd-128 limit")
+    if device.type == "cuda" and (sort_k1 <= 0 or
+                                  t["ntt_launches"]["ntt_inv"] <= 0):
+        raise AssertionError(f"{STREAM_PATH}: the sort launched no kernel: "
+                             f"{t['ntt_launches']}")
+    if not t["key_regens"] > t["rot_keys"]:
+        raise AssertionError(f"{STREAM_PATH}: {t['key_regens']} "
+                             f"regenerations for {t['rot_keys']} keys")
+    if not t["rot_keys_resident_bytes"] <= budget:
+        raise AssertionError(f"{STREAM_PATH}: resident keys over budget")
+    return launches, {"ntt_fwd": hook["ntt_fwd"], "ntt_inv": 0}
+
+
 def main() -> int:
     print(f"python {platform.python_version()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -795,6 +1105,12 @@ def main() -> int:
     launches[EXP_PATH] = experiments_phase(device, mems[EXP_CHAIN])
     print(f"[time] {EXP_PATH} done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
+
+    # 7b. key streaming with device keygen on the mehp24 N=512 chain
+    keygen_phase(device)
+    launches[STREAM_PATH], launches[STREAM_KEYGEN] = stream_phase(device)
+    print(f"[time] {STREAM_PATH} done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # 8. results
     print(json.dumps({"kernels": kernel_records(largest, table, launches)}),

@@ -5,7 +5,8 @@ reference each part is checked against:
 
   core/    CKKS runtime: number theory, RNS arithmetic (rns), NTT tables
            and plain versions (ntt), the hand-written CUDA NTT kernels
-           (cuda_ntt + csrc/ntt.cu), params, keys, ckks, poly_eval,
+           (cuda_ntt + csrc/ntt.cu), params, keys (host and device
+           keygen), keystore (rotation-key streaming), ckks, poly_eval,
            bootstrap (EvalBootstrap), interop (JAX-side arrays <-> this
            package's tensors)
   ops/     sign / compare / rotation machinery / Chebyshev coefficients

@@ -8,8 +8,10 @@ check the first result against np.sort.  The record has the JAX bench's
 keys plus the peak device memory of each phase (setup, keys, encrypt,
 sort) from torch.cuda.max_memory_allocated, the resident key set, the op
 census, the plaintext encodes and the NTT kernel launches of each trial,
-and the device it ran on.  Every rotation key stays resident (no key
-streaming).  Bitonic and k-way bootstrap mid-sort (core/bootstrap.py, a
+and the device it ran on.  Every rotation key stays resident unless
+SORTING_FHE_KEY_BUDGET_MB sets a budget (key_budget_overrides; then the
+record counts the keys' regenerations).  Bitonic and k-way bootstrap
+mid-sort (core/bootstrap.py, a
 sparse secret of Hamming weight 64): the bootstrap keys of the sort's
 slot width are made in the keys phase, and the record gives each trial's
 bootstraps (seconds, phases, limbs before and after).
@@ -36,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from .core.ckks import KEY_BUDGET_ENV
 from .utils.memory import device_mem_gb, reset_device_peak
 
 # Reference hybrid1 averages: OpenFHE on a CPU, ring 2^17, HEStd_128_classic,
@@ -69,6 +72,21 @@ def boot_overrides(algo: str) -> dict:
     and a sparse secret keeps the mod-raise integer within EvalMod's
     sine range (bench.py:277-279)."""
     return {"secret_hw": 64} if algo in ("bitonic", "kway") else {}
+
+
+def key_budget_overrides(streams: bool) -> dict:
+    """Config overrides of the JAX harnesses' streaming arm (bench.py:
+    279-283, experiments.py:90-100), `streams` being the arm's condition
+    for the sort: the rotation keys' budget in MB from
+    SORTING_FHE_KEY_BUDGET_MB.  The JAX arms default to 5120 MB, sized
+    for the 16 GB v5e; here the arm applies a budget only when the
+    variable is set, because every key set of the registry fits the
+    H100's 80 GB (the largest, mehp24 N=512, 40.9 GB) and a default would
+    turn resident runs such as mehp24 N=128 into streamed ones.
+    (CkksContext reads the same variable for a config without a budget;
+    the arm writes it into the config.)"""
+    env = os.environ.get(KEY_BUDGET_ENV)
+    return {"rot_key_budget_mb": int(env)} if streams and env else {}
 
 
 def default_minimal_keys(N: int, ring_log: int) -> bool:
@@ -258,7 +276,9 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     device = torch.device(device)
     p = get_params(algo, N)
     boots = algo in ("bitonic", "kway")
-    cfg = full_config(p, ring_dim=1 << ring_log, **boot_overrides(algo))
+    cfg = full_config(p, ring_dim=1 << ring_log, **boot_overrides(algo),
+                      **key_budget_overrides(
+                          algo == "mehp24" and ring_log >= 16 and N >= 32))
     mem, secs = {}, {}
 
     reset_device_peak(device)
@@ -361,7 +381,9 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
            "mults": ctx.mult_count, "rots": ctx.rot_count,
            "security_logqp": logqp, "security_ok": ok,
            "device_mem": mem, "resident_gb": resident_gb(ctx),
-           "rot_keys": len(ctx.rot_keys), "phase_s": secs,
+           "rot_keys": len(ctx.rot_keys),
+           "key_budget_mb": cfg.rot_key_budget_mb,
+           "key_regens": ctx.rot_keys.regen_count, "phase_s": secs,
            "op_census": census, "pt_encode": encodes,
            "ntt_launches": launches,
            **({"bootstraps": bootstraps} if boots else {}),

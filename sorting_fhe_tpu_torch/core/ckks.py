@@ -17,7 +17,13 @@ on a CUDA device, their plain versions on the CPU.
 Differences from the JAX package, none of which changes a bit: ops are
 plain functions run eagerly (no jit, no pytrees, no trace-state guards),
 every op runs at the exact limb count (no limb bucketing), and constants
-need no Shoup companions.  Not ported yet: key streaming.
+need no Shoup companions.
+
+Rotation-key streaming as in the JAX package: under a budget
+(cfg.rot_key_budget_mb, else SORTING_FHE_KEY_BUDGET_MB) gen_rotation_keys
+only registers keys, and the key store makes each on first use with the
+device keygen (keys.gen_rotation_key_dev) and keeps at most the budget's
+bytes of them (core/keystore.py).
 
 One op is not bit-equal by design: mod_raise's correction count is a
 float32 sum, as in the JAX package, and a float32 sum can round the other
@@ -46,6 +52,8 @@ from .rns import add_mod, sub_mod, neg_mod, mont_mul
 from .cuda_ntt import ntt_fwd, ntt_inv
 
 SCALE_TOL = 2.0 ** -25
+# the rotation keys' budget in MB for a config that names none
+KEY_BUDGET_ENV = "SORTING_FHE_KEY_BUDGET_MB"
 I32 = torch.int32
 I64 = torch.int64
 
@@ -414,8 +422,11 @@ class CkksContext:
         no secret key (the reference's deserialized CryptoContext,
         sort.h:31-74).  Keys are uint32 residue arrays, as serial.py
         loads them; they go to `device`, and the public key stays on the
-        host as uint64 (b, a), where the Encryptor uses it.  The server
-        can encrypt, evaluate and serialize; decrypt() raises."""
+        host as uint64 (b, a), where the Encryptor uses it.  The loaded
+        rotation keys are pinned in the key store whatever the config's
+        budget (with no secret nothing can make them again), as the JAX
+        package's plain dict keeps them.  The server can encrypt,
+        evaluate and serialize; decrypt() raises."""
         self = cls.__new__(cls)
         self._init_common(cfg, device)
         self.keygen = None
@@ -434,10 +445,16 @@ class CkksContext:
         self.params = CkksParams(cfg, self.device)
         self.n = self.params.n
         self.delta = float(2 ** cfg.scale_bits)
-        if cfg.rot_key_budget_mb is not None:
-            raise NotImplementedError(
-                "rotation-key streaming (rot_key_budget_mb) is not ported")
-        self.rot_keys = KeyStore(None)
+        # rotation-key budget (JAX ckks.py:617-626): the config's, else
+        # the environment's; 0 streams with no cap (lazy device keygen,
+        # every key kept)
+        budget_mb = cfg.rot_key_budget_mb
+        if budget_mb is None:
+            env = os.environ.get(KEY_BUDGET_ENV)
+            budget_mb = int(env) if env else None
+        self._key_streaming = budget_mb is not None
+        self.rot_keys = KeyStore((budget_mb << 20) if budget_mb else None,
+                                 regen=self._regen_rot_key)
         self.conj_key = None
         self._conj_perm = None
         self._tables: dict[int, _LevelTables] = {}
@@ -518,8 +535,10 @@ class CkksContext:
 
     # ---------------- key management ----------------
     def gen_rotation_keys(self, indices: list[int]):
-        """EvalRotateKeyGen equivalent: every key stays resident.  An
-        evaluation-only context cannot make keys: a missing one raises."""
+        """EvalRotateKeyGen equivalent.  Under a rotation-key budget the
+        keys are only registered: the key store makes each on first use
+        (`_regen_rot_key`).  An evaluation-only context cannot make keys:
+        a missing one raises."""
         half = self.n // 2
         for k in indices:
             kk = k % half
@@ -528,8 +547,16 @@ class CkksContext:
                     raise KeyError(
                         f"evaluation-only context is missing rotation key "
                         f"{k}: regenerate and reserialize with it")
+                if self._key_streaming:
+                    self.rot_keys.register(kk)
+                    continue
                 g = encoding.galois_element_for_rotation(self.n, kk)
                 self.rot_keys[kk] = self.keygen.gen_rotation_key(g)
+
+    def _regen_rot_key(self, kk: int) -> torch.Tensor:
+        """The key store's hook: the device keygen's key for rotation kk."""
+        g = encoding.galois_element_for_rotation(self.n, kk)
+        return self.keygen.gen_rotation_key_dev(g)
 
     def _perm(self, k: int) -> torch.Tensor:
         """int64 gather index of the Galois automorphism for rotation k."""

@@ -16,8 +16,14 @@ with W_j = (Q/D_j) * [(Q/D_j)^{-1}]_{D_j} the CRT reconstruction weight of
 digit j.  Keys are int32 [dnum, 2, num_rows, n] tensors in NTT + Montgomery
 form, rows = q primes then special primes.
 
-Not ported yet: the device-PRNG keygen (`gen_rotation_key_dev`) that key
-streaming needs.
+Two keygens share one per-digit assembly (`_ksk_digit`): `gen_ksk` draws
+`a` and the errors on the host (the JAX package's draws, bit for bit), and
+`gen_rotation_key_dev` draws them on the device from a generator seeded
+per (cfg.seed, g, digit) (`_digit_seed`), so regenerating a key gives the
+same bits and the rotation-key store can evict it (core/keystore.py).
+The device draws are torch's, not `jax.random`'s: a device-PRNG key equals
+the JAX package's only in what it decrypts, and a CPU key differs from a
+CUDA key of the same seed.
 """
 
 from __future__ import annotations
@@ -26,10 +32,16 @@ import numpy as np
 import torch
 
 from . import nt
+from .cuda_ntt import ntt_fwd
 from .host_poly import (
     host_ntt, sample_ternary, sample_gaussian, rns_to_centered_bigint,
 )
 from .params import CkksParams
+from .rns import mont_mul, add_mod, sub_mod
+
+I32 = torch.int32
+I64 = torch.int64
+_M64 = (1 << 64) - 1
 
 
 def _to_mont(x: np.ndarray, p: int) -> np.ndarray:
@@ -118,6 +130,31 @@ class KeyGenerator:
         self._ksk_w_cache = torch.from_numpy(w).to(P.device)
         return self._ksk_w_cache
 
+    def _secret_ntt(self) -> torch.Tensor:
+        """s in NTT + Montgomery form on every row, int32 [nrows, n] on
+        the device, made once (the JAX package keeps its reduced s there)."""
+        if not hasattr(self, "_s_ntt"):
+            P = self.params
+            s = torch.from_numpy(self.sk.s_coeffs.astype(np.int64)).to(
+                P.device)
+            self._s_ntt = _ntt_mont(s[None, :] % P.primes_dev[:, None], P)
+        return self._s_ntt
+
+    def _assemble(self, sp: torch.Tensor, draw) -> torch.Tensor:
+        """The key for the int64 [n] secret sp (on the device), digit by
+        digit: draw(j) -> (a_j int [nrows, n] uniform residues, e_j int
+        [n] small signed error).  Only one digit's intermediates are live
+        at a time."""
+        P = self.params
+        w = self._ksk_weights()
+        s_ntt = self._secret_ntt()
+        sp_ntt = _ntt_mont(sp[None, :] % P.primes_dev[:, None], P)
+        out = torch.empty((w.shape[0], 2, len(P.all_primes), P.n),
+                          dtype=I32, device=P.device)
+        for j in range(w.shape[0]):
+            out[j] = _ksk_digit(s_ntt, sp_ntt, *draw(j), w[j], P)
+        return out
+
     def gen_ksk(self, s_prime_coeffs: np.ndarray) -> torch.Tensor:
         """Key switching key for s' -> s: int32 [dnum, 2, nq + nsp, n],
         NTT+Montgomery domain, assembled on the params' device.  Only the
@@ -126,27 +163,36 @@ class KeyGenerator:
         P = self.params
         n = P.n
         rows = P.q + P.p_special
-        nrows = len(rows)
         dnum = len(self._digit_indices())
         dev = P.device
-        p = P.primes_dev                                  # int64 [nrows]
 
         # uniform a (Montgomery-domain uniform == uniform)
-        a_all = np.empty((dnum, nrows, n), dtype=np.uint32)
+        a_all = np.empty((dnum, len(rows), n), dtype=np.uint32)
         for r, pr in enumerate(rows):
             a_all[:, r, :] = self.rng.integers(
                 0, pr, size=(dnum, n), dtype=np.uint64).astype(np.uint32)
         e_all = np.stack([sample_gaussian(n, P.cfg.sigma, self.rng)
                           for _ in range(dnum)])       # [dnum, n] signed
 
-        s = torch.from_numpy(self.sk.s_coeffs).to(dev)
-        sp = torch.from_numpy(
-            np.asarray(s_prime_coeffs, dtype=np.int64)).to(dev)
-        e = torch.from_numpy(e_all).to(dev)
-        return _ksk_kernel_body(
-            s[None, :] % p[:, None], sp[None, :] % p[:, None],
-            torch.from_numpy(a_all.view(np.int32)).to(dev),
-            e[:, None, :] % p[None, :, None], self._ksk_weights(), P)
+        sp = torch.from_numpy(np.asarray(s_prime_coeffs, dtype=np.int64))
+        return self._assemble(sp.to(dev), lambda j: (
+            torch.from_numpy(a_all[j].view(np.int32)).to(dev),
+            torch.from_numpy(e_all[j]).to(dev)))
+
+    def gen_rotation_key_dev(self, g: int) -> torch.Tensor:
+        """Galois key for element g with `a` and the errors drawn on the
+        params' device (`_device_draw`): the same (cfg.seed, g) gives the
+        same bits every time, so the key store may drop the key and make
+        it again.  Only the rotated secret ([n], small) crosses from the
+        host.  cfg.seed is also the secret's seed (`KeyGenerator`): a
+        client that streams keys keeps it as secret as the key."""
+        from .encoding import automorphism_index_table
+        P = self.params
+        src, sign = automorphism_index_table(P.n, g)
+        s_rot = torch.from_numpy(
+            (sign * self.sk.s_coeffs[src]).astype(np.int64)).to(P.device)
+        return self._assemble(
+            s_rot, lambda j: _device_draw(P, _digit_seed(P.cfg.seed, g, j)))
 
     def gen_relin_key(self) -> torch.Tensor:
         # s^2 mod (X^n + 1) has coefficients bounded by n < p/2, so a single
@@ -176,36 +222,63 @@ def _negacyclic_square_int(s: np.ndarray, p: int, n: int) -> np.ndarray:
     return np.where(s2 > p // 2, s2 - p, s2)
 
 
-def _ksk_kernel_body(s_red, sp_red, a, e_red, w, P: CkksParams):
-    """Device-side KSK assembly: b = e - a*s + P*W_j*s' (all NTT+Mont).
+def _ntt_mont(x: torch.Tensor, P: CkksParams) -> torch.Tensor:
+    """Plain residues int64 [nrows, n], one row per chain prime -> NTT +
+    Montgomery form, int32, through K1 (its plain version on the CPU)."""
+    p = P.primes_dev.reshape(-1, 1)
+    m = x * ((1 << 32) % p) % p
+    rows = torch.arange(len(P.all_primes), dtype=I32, device=P.device)
+    return ntt_fwd(m.to(I32).contiguous(), P.ntt, rows)
 
-    s_red/sp_red: int64 [nrows, n] plain residues; a: int32 [dnum, nrows, n]
-    uniform (treated as Montgomery-domain, still uniform); e_red: int64
-    [dnum, nrows, n]; w: int64 [dnum, nrows] P*W_j per row.  Counterpart of
-    keys.py:_ksk_kernel_body; the NTTs go through K1."""
-    from .cuda_ntt import ntt_fwd
-    from .rns import mont_mul, add_mod, sub_mod
 
-    p = P.primes_dev
-    rmod = (1 << 32) % p
-    rows = torch.arange(len(P.all_primes), dtype=torch.int32,
-                        device=P.device)
-    p1 = p.reshape(-1, 1)
-    p2 = p.reshape(1, -1, 1)
-    rinv2 = P.mont_r_inv.reshape(1, -1, 1)
+def _ksk_digit(s_ntt, sp_ntt, a_j, e_j, w_j, P: CkksParams) -> torch.Tensor:
+    """Digit j of a key-switching key: int32 [2, nrows, n] = (b_j, a_j),
+    b_j = e_j - a_j*s + P*W_j*s' in NTT + Montgomery form.
 
-    def fwd_mont(x):           # plain residues -> NTT + Montgomery, int64
-        m = x * rmod.reshape(-1, 1) % p1
-        return ntt_fwd(m.to(torch.int32).contiguous(), P.ntt,
-                       rows).to(torch.int64)
+    s_ntt/sp_ntt: int [nrows, n], s and s' in NTT + Montgomery form; a_j:
+    int [nrows, n] uniform residues (taken as Montgomery form, still
+    uniform); e_j: int [n] signed error, reduced and transformed here;
+    w_j: int64 [nrows], P*W_j mod each row prime.  Digit j of the JAX
+    package's keys.py:_ksk_kernel_body, which computes every digit at
+    once with Shoup pairs for the constants."""
+    p = P.primes_dev.reshape(-1, 1)
+    e_ntt = _ntt_mont(e_j.to(I64)[None, :] % p, P)
+    term = sp_ntt.to(I64) * w_j.reshape(-1, 1) % p
+    asl = mont_mul(a_j, s_ntt, p, P.mont_r_inv.reshape(-1, 1))
+    b = add_mod(sub_mod(e_ntt, asl, p), term, p)
+    return torch.stack([b.to(I32), a_j.to(I32)])
 
-    s_ntt = fwd_mont(s_red)
-    sp_ntt = fwd_mont(sp_red)
-    e_ntt = fwd_mont(e_red)
-    term = sp_ntt[None] * w[:, :, None] % p2
-    asl = mont_mul(a, s_ntt[None], p2, rinv2)
-    b = add_mod(sub_mod(e_ntt, asl, p2), term, p2)
-    return torch.stack([b.to(torch.int32), a], dim=1)  # [dnum, 2, nrows, n]
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def _digit_seed(seed: int, g: int, j: int) -> int:
+    """The device generator's seed for digit j of the key of Galois
+    element g: splitmix64 chained over seed ^ 0x5EED (the JAX package's
+    PRNGKey(seed ^ 0x5EED)), then g, then j, cut to 63 bits."""
+    x = _splitmix64((seed ^ 0x5EED) & _M64)
+    x = _splitmix64(x ^ g)
+    return _splitmix64(x ^ j) >> 1
+
+
+def _device_draw(P: CkksParams, seed: int) -> tuple:
+    """One digit's draws on the params' device from a fresh generator
+    seeded with `seed`, in this order and at these sizes: a uniform in
+    [0, 2^62) reduced mod each row's prime (bias below 2^-31; torch's
+    randint takes no per-row bound), int64 [nrows, n]; then the error
+    round(N(0, 1) * sigma) in float32, int64 [n]."""
+    gen = torch.Generator(device=P.device)
+    gen.manual_seed(seed)
+    a = torch.randint(0, 1 << 62, (len(P.all_primes), P.n), generator=gen,
+                      dtype=I64, device=P.device)
+    a %= P.primes_dev.reshape(-1, 1)
+    e = torch.randn(P.n, generator=gen, dtype=torch.float32,
+                    device=P.device)
+    return a, torch.round(e * P.cfg.sigma).to(I64)
 
 
 class Encryptor:

@@ -1,13 +1,25 @@
 """Rotation-key store: byte-capped device LRU with on-demand regeneration.
 
 Copy of the JAX package's store.  A full-fidelity keyswitch key is
-[dnum, 2, nq+ksp, 2^17] int32 (about 0.3-0.65 GB), and pipelines like
-MEHP24 need ~20-35 distinct rotation indices.  With a byte budget the
-store keeps at most `budget_bytes` of keys resident and regenerates
-evicted keys on demand through a deterministic per-index path, so
-eviction is transparent.  This package runs only the budget=None path
-(plain dict semantics): key streaming with device keygen is not ported
-yet.
+[dnum, 2, nq+ksp, 2^17] int32 (0.35-1.26 GB on the registry's chains at
+ring 2^17), and pipelines like MEHP24 need ~20-40 distinct rotation
+indices.  With a byte budget the store keeps at most `budget_bytes` of
+keys resident and regenerates evicted keys on demand through a
+deterministic per-index path (CkksContext._regen_rot_key ->
+keys.gen_rotation_key_dev), so eviction is transparent.  An evicted key's
+device memory returns to the allocator only when nothing else holds the
+tensor: the context's ops take a key as an argument for one call and keep
+no reference to it.
+
+Iterating the store's values (`items()`, `values()`) materialises every
+registered key, one after another; `len()`, `in` and `resident_bytes`
+make none.
+
+Regeneration uses the client-side KeyGenerator, which this process also
+holds, as in the reference's experimental setup (the sorting process
+keeps the secret key, DirectSortTest.cpp:27-57).  An evaluation-only
+context (serial.py) pins the keys it loads (budget or not) and makes
+none.
 """
 
 from __future__ import annotations

@@ -54,7 +54,8 @@ class CkksConfig:
     dnum: int = 3                 # hybrid key-switch digit count
     num_special_primes: int | None = None  # default: ceil(nq/dnum)
     # rotation-key device budget (MB): None keeps every generated key
-    # resident (dict semantics, the only mode this package runs yet)
+    # resident (dict semantics, unless SORTING_FHE_KEY_BUDGET_MB is set);
+    # a budget streams the keys (core/keystore.py), 0 with no cap
     rot_key_budget_mb: int | None = None
     seed: int = 2024
     sigma: float = 3.19           # error stddev

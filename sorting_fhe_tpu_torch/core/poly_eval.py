@@ -9,7 +9,10 @@ Covers the OpenFHE surface the reference uses:
   - EvalChebyshevFunction  (sign.cpp:610-633 naive/tanh variants)
 
 Host drives the recursion; every node is a ciphertext op on device.
-Scalar-only subtrees stay scalars (no wasted ct ops).
+Scalar-only subtrees stay scalars (no wasted ct ops).  A copy of the JAX
+package's module, but for one thing: the evaluators empty their tables of
+powers before they return, which their recursive closures would otherwise
+keep alive until the next garbage collection.
 """
 
 from __future__ import annotations
@@ -181,7 +184,13 @@ def _ps_eval(se: _SymEval, y: Ciphertext, c: np.ndarray, k: int):
         rv = rec(r)
         return se.add(se.mul(qv, _memo_deg1(se, T, N)), rv)
 
-    return rec(c)
+    # get_T and rec name themselves, so they and their closure cells form
+    # a reference cycle that only the garbage collector frees; emptying T
+    # frees the powers (a few GB of ciphertexts at ring 2^17) on return
+    try:
+        return rec(c)
+    finally:
+        T.clear()
 
 
 def eval_poly_linear(ctx: CkksContext, ct: Ciphertext, coeffs) -> Ciphertext:
@@ -218,6 +227,7 @@ def eval_poly_linear(ctx: CkksContext, ct: Ciphertext, coeffs) -> Ciphertext:
         for j in bits[1:]:
             term = ctx.mult(term, _memo_deg1(se, sq, j))
         acc = se.add(acc, term)
+    sq.clear()        # get_sq's cycle holds sq (see _ps_eval)
     return acc
 
 

@@ -16,10 +16,20 @@ Per-trial stdout mirrors the reference's gtest log lines
 The memory lines are the host's (utils/memory.py); on the card each
 trial's record also holds the device memory of its phases (device_*).
 
-Runs on the card unless --cpu (device="cpu") asks for the CPU.  Where it
-differs from the JAX package's harness: every rotation key stays resident
-(no streaming arm: key streaming is not ported, and its 5120 MB budget
-is below the dnum-5 ladder anyway), nothing is pre-touched, k-way boots
+Runs on the card unless --cpu (device="cpu") asks for the CPU.  The
+streaming arm is the JAX harness's (mehp24 N >= 32, bitonic, k-way, or
+N >= 256, at ring >= 2^16): such a sort streams its rotation keys under
+SORTING_FHE_KEY_BUDGET_MB, e.g.
+
+    SORTING_FHE_KEY_BUDGET_MB=5120 python -m sorting_fhe_tpu_torch.experiments \\
+        --algo mehp24 --sizes 512 --trials 1
+
+and each trial's record gives the keys, their regenerations and the
+bytes resident after the sort (beside the sort's NTT kernel launches,
+which include the launches of the keys it made).  Where it differs from
+the JAX package's harness: without the variable every key stays
+resident (the JAX arm's default of 5120 MB is sized for the 16 GB v5e;
+see bench.key_budget_overrides), nothing is pre-touched, k-way boots
 against the registry's depth (the JAX harness's KWaySorter takes half
 the chain's), and mehp24 takes the bench's degrees (bench.mehp24_degrees,
 the reference fixture's).  The sorters, their keys and the sparse
@@ -38,7 +48,9 @@ import time
 
 import numpy as np
 
-from .bench import boot_overrides, build_sorter, default_minimal_keys
+from .bench import (boot_overrides, build_sorter, default_minimal_keys,
+                    key_budget_overrides)
+from .core.cuda_ntt import ntt_fwd, ntt_inv
 from .registry import get_params, full_config, cheap_config, security_check
 from .utils.memory import MemoryMonitor
 from .utils.testvec import vector_with_min_diff
@@ -68,6 +80,9 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
 
     p = get_params(algo if algo != "direct2n" else "direct", N)
     boot = boot_overrides(algo)
+    boot.update(key_budget_overrides(ring_log >= 16 and (
+        (algo == "mehp24" and N >= 32) or algo in ("bitonic", "kway")
+        or N >= 256)))
     cfg = (full_config(p, **boot) if ring_log >= 16
            else cheap_config(p, ring_log=ring_log, **boot))
     mon = MemoryMonitor(device=device).start()
@@ -88,10 +103,13 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
     mon.mark("setup")
 
     m0, r0 = ctx.mult_count, ctx.rot_count
+    k0 = [kern.launches for kern in (ntt_fwd, ntt_inv)]
     t0 = time.time()
     out = sort_fn(ct, p.sign_config())
     ctx.sync()
     exec_ms = (time.time() - t0) * 1000.0
+    launches = {kern.__name__: kern.launches - n0
+                for kern, n0 in zip((ntt_fwd, ntt_inv), k0)}
     got = ctx.decrypt(out)[:N]
     mon.stop()
 
@@ -101,6 +119,11 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
     mem = mon.report()
     logqp, limit, sec_ok = security_check(cfg, ctx.params)
     counts = (ctx.mult_count - m0, ctx.rot_count - r0)
+    # len() and resident_bytes make no key (items() would make them all)
+    keys = {"rot_keys": len(ctx.rot_keys),
+            "key_budget_mb": cfg.rot_key_budget_mb,
+            "key_regens": ctx.rot_keys.regen_count,
+            "rot_keys_resident_bytes": ctx.rot_keys.resident_bytes}
     if reuse is None:
         # release this trial's device memory eagerly: a lingering
         # previous context would crowd the next trial
@@ -121,7 +144,7 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
         "max_err": max_err, "avg_err": avg_err,
         "n_big_err": int((err > 0.01).sum()),
         "mults": counts[0], "rots": counts[1],
-        "logqp": logqp, "sec_ok": sec_ok,
+        "logqp": logqp, "sec_ok": sec_ok, **keys, "ntt_launches": launches,
         **mem,
     }
     if verbose:

@@ -34,8 +34,9 @@ loader, none of which changes what a file means to the server:
     op at the exact limb count and never pads to a bucket.
 
 A context file written by the JAX package may carry `limb_pad`, which
-this package ignores, or `rot_key_budget_mb`, for which CkksContext
-raises NotImplementedError (key streaming is not ported).
+this package ignores, and `rot_key_budget_mb`, which CkksContext takes as
+the JAX package does: a client context streams its keys under it, and an
+evaluation-only context pins the keys it loads.
 """
 
 from __future__ import annotations

@@ -5,7 +5,10 @@ Tier-1:
   * an evaluation-only context loaded from files has no decryptor,
     decrypt raises RuntimeError, a missing rotation key raises KeyError,
     the server encrypts with the public key alone; a foreign context file
-    raises ValueError and a JAX streaming config NotImplementedError;
+    raises ValueError; a JAX streaming config loads with its budget, and
+    the server built on it keeps the keys it loaded pinned (no
+    regeneration, over the budget) and still raises KeyError for a
+    missing one;
   * the driver's fault, copied: built on a minimal key set, the driver's
     DirectSort (no minimal key mode) asks the hybrid sorts for rotations
     no key covers, the same set in both packages; the direct sort finds
@@ -54,16 +57,28 @@ def port_client(tmp_path_factory):
 
 def test_evaluation_only_context(port_client, tmp_path):
     """The server's context from files: no secret, no key generation; a
-    foreign context file and a JAX streaming config are refused."""
+    foreign context file is refused; under a JAX streaming config the
+    loaded keys stay pinned."""
     tctx, paths, d = port_client
     (tmp_path / "x.json").write_text("{}")
     with pytest.raises(ValueError):
         tserial.load_config(tmp_path / "x.json")
-    # a JAX streaming config: key streaming is not ported
+    # a JAX streaming config, budget 1 MB: it loads, and a server built
+    # on it pins the keys it loaded, which cannot be made again
     jserial.save_context(tmp_path / "s.json", JCfg(**CFG,
-                                                   rot_key_budget_mb=64))
-    with pytest.raises(NotImplementedError):
-        TC(tserial.load_config(tmp_path / "s.json"), device="cpu")
+                                                   rot_key_budget_mb=1))
+    assert tserial.load_config(tmp_path / "s.json").rot_key_budget_mb == 1
+    streamed = tserial.load_eval_context(**{**paths, "cc": tmp_path / "s.json"},
+                                         device="cpu")
+    x = tserial.load_ciphertext(d / "in.npz", device="cpu")
+    for k in (1, 2, 4, -1):
+        streamed.rotate(x, k)
+    store = streamed.rot_keys
+    assert store.regen_count == 0 and sorted(store) == sorted(tctx.rot_keys)
+    assert store.resident_bytes == sum(
+        tctx.rot_keys[k].nbytes for k in tctx.rot_keys) > 1 << 20
+    with pytest.raises(KeyError):
+        streamed.gen_rotation_keys([3])
     server = tserial.load_eval_context(**paths, device="cpu")
     assert server.keygen is None and server.decryptor is None
     assert sorted(server.rot_keys) == sorted(tctx.rot_keys)
