@@ -1,4 +1,4 @@
-"""Smoke run of the torch port on one CUDA GPU: build, check, sort.
+"""Smoke run of the torch port on one CUDA GPU: build, check, sort, shard.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,10 @@
    gets the device keygen's class [119, n]); on the two bootstrapping
    chains also
    the mod-raise's inverse NTT of the 3 base rows, [2, 3, n], and its
-   forward NTT over the whole chain ([2, 107, n], [2, 83, n]).  K1/K2 must be bit-equal
+   forward NTT over the whole chain ([2, 107, n], [2, 83, n]).  On step
+   8's chain, one slot's blocks of a 4-slot mesh (slot 1's rows): [4, 30,
+   n] ext digits, [24, n] decompose, [2, 6, n] special rows and [2, 24,
+   n] ModDown.  K1/K2 must be bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
    and class its launch plan, its time (CUDA events over CUDA-graph
    replays, cycling through enough copies of the input that they do not
@@ -96,13 +99,33 @@
    the seconds in the key store's hook (synchronised), the K1 launches
    of the keygen apart from the sort's, the device memory per phase, the
    bytes allocated after the sort and the caches' bytes (cache_bytes).
-8. Prints the kernel record (one JSON line: each kernel's time and bound
+8. The limb-sharded key switch (sorting_fhe_tpu_torch/parallel/) on a
+   virtual mesh of 4 slots on cuda:0, at ring 2^17 on a comp-1 chain
+   whose rows divide the mesh (96 q + 24 special primes, dnum 4, scale
+   2^28, logQP 3476; the JAX multichip dryrun's kind of chain at full
+   width), with the relin key and rotation keys {1, 3} from the host
+   keygen (the JAX package's bits).  With the launch counters reset just
+   before its ops and read just after: mult_relin of two fresh 128-slot
+   ciphertexts, their rotations by 1 and 3, and the product's rotations by
+   1 and 3, each torch.equal to the single-device op on the same data;
+   the product and its rotations, rescaled and decrypted, within 1e-2 of
+   v*w and np.roll(v*w, -k) (the fresh rotations' error, about 0.13 at
+   this scale in both paths, is printed); exactly two gathers per op of
+   (D-1)/D of the [96, n] digit residues and of the [2, 24, n] special
+   residues (37,748,736 and 18,874,368 bytes per slot, as
+   collective_bytes(k=2) counts them); launches of K1 and K2.  Prints
+   the launches per op, best-of-5 ms of each op on the mesh and on one
+   device (synchronised, warm), the step's peak device memory and
+   comm_budget of step 4's hybrid1 N=128 census; with two cards or
+   more, the same ops on a mesh of distinct cards (bit-equality and
+   times), else that it was not run.
+9. Prints the kernel record (one JSON line: each kernel's time and bound
    at the largest class of the mehp24 chain and its launches on the
    mehp24 path, and under "paths" the same for every path, the
-   bootstrap phase and steps 6, 7 and 7b (the largest class of the CLI's
-   chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's, and for
+   bootstrap phase and steps 6, 7, 7b and 8 (the largest class of the
+   CLI's chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's, for
    the device keygen the [119, n] class with its K1 launches in 7b's
-   sort)), the card's
+   sort, and for the mesh a slot's [4, 30, n] class)), the card's
    name and power limit, and as the last line {"ok": true, "device":
    {...}}.  Any failed check raises, so the script exits non-zero and
    prints no result.
@@ -169,6 +192,18 @@ STREAM_PATH = "mehp24 N=512 streamed"
 STREAM_KEYGEN = "mehp24 N=512 device keygen"
 STREAM_ALGO, STREAM_N, STREAM_BUDGET_MB = "mehp24", 512, 5120
 STREAM_ROTS, STREAM_ROT_GATE = (1, 32640, 65280), 1e-5
+# step 8: the limb-sharded key switch (parallel/) on a chain whose q and
+# special rows divide the mesh.  The registry's comp-2 chains have an odd
+# nq = 3 + 2 * depth, so comp 1, as the JAX package's multichip dryrun
+# takes (__graft_entry__.py:77-80), at full width: 96 q + 24 special
+# primes, dnum 4 (the relin key [4, 2, 120, n], 0.503 GB), logQP 3476.
+# Scale 2^28, the most that keeps 96 q rows under HEStd-128: a product
+# of two fresh ciphertexts decrypts 0.0133 off at 2^27 on an H100
+MESH_PATH = "mesh keyswitch"
+MESH_CFG = dict(comp=1, mult_depth=94, scale_bits=28, dnum=4,
+                num_special_primes=24)
+MESH_SLOTS, MESH_N, MESH_ROTS, MESH_GATE, MESH_REPS = 4, 128, (1, 3), 1e-2, 5
+MESH_CENSUS = "hybrid1 N=128"        # step 4's census for comm_budget
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -333,6 +368,14 @@ def _chain_classes(P, label: str) -> list:
                 (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,))]
     if label == STREAM_PATH:     # the device keygen's NTTs: every row
         return [big, (f"[{LP}, n] keygen", list(range(LP)), ())]
+    if label == MESH_PATH:       # one slot's blocks: slot 1's rows
+        bq, bs = nq // MESH_SLOTS, (LP - nq) // MESH_SLOTS
+        q, s = list(range(bq, 2 * bq)), list(range(nq + bs, nq + 2 * bs))
+        return [(f"[{digits}, {bq + bs}, n] slot ext digits", q + s,
+                 (digits,)),
+                (f"[{bq}, n] slot decompose", q, ()),
+                (f"[2, {bs}, n] slot special rows", s, (2,)),
+                (f"[2, {bq}, n] slot moddown", q, (2,))]
     return classes if label == MAIN else [big]
 
 
@@ -413,6 +456,12 @@ def _stream_config(**overrides):
                        ring_dim=1 << RING_LOG, **overrides)
 
 
+def _mesh_config():
+    """Step 8's chain (MESH_CFG at ring 2^RING_LOG)."""
+    from sorting_fhe_tpu_torch.core.params import CkksConfig
+    return CkksConfig(ring_dim=1 << RING_LOG, **MESH_CFG)
+
+
 def _chain_configs() -> list:
     """(label, config) of every path's chain, in the order they run."""
     from sorting_fhe_tpu_torch.registry import get_params, full_config
@@ -420,7 +469,8 @@ def _chain_configs() -> list:
            for label, algo, N, _ in PATHS]
     chain = dict(out)
     return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN]),
-                  (STREAM_PATH, _stream_config())]
+                  (STREAM_PATH, _stream_config()),
+                  (MESH_PATH, _mesh_config())]
 
 
 def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
@@ -483,7 +533,7 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
                        **timing(largest[p])}
                       for p in [p for p, *_ in PATHS] + [
                           BOOT_PHASE, CLI_PATH, EXP_PATH, STREAM_PATH,
-                          STREAM_KEYGEN]]})
+                          STREAM_KEYGEN, MESH_PATH]]})
     return recs
 
 
@@ -492,11 +542,12 @@ def _shape_str(shape) -> str:
         f", 2^{shape[-1].bit_length() - 1}]"
 
 
-def run_path(label, algo, N, trials, device) -> tuple[dict, dict]:
+def run_path(label, algo, N, trials, device) -> tuple[dict, dict, dict]:
     """Step 4 for one path: its sort with the launch counters reset just
     before and read just after, the gates, and its printed record.
-    Returns the NTT launches of the run and the peak device memory of
-    each phase (bench.sort_bench's device_mem)."""
+    Returns the NTT launches of the run, the peak device memory of each
+    phase (bench.sort_bench's device_mem) and the last trial's op
+    census."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.core import cuda_ntt
     gc.collect()
@@ -536,7 +587,7 @@ def run_path(label, algo, N, trials, device) -> tuple[dict, dict]:
         if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
             raise AssertionError(f"{label} never launched {name} "
                                  f"(per trial {rec['ntt_launches']})")
-    return launches, rec["device_mem"]
+    return launches, rec["device_mem"], rec["op_census"][-1]
 
 
 def _storages(obj, device, skip: set, depth: int = 0) -> dict:
@@ -880,12 +931,17 @@ def experiments_phase(device, bench_mem: dict) -> dict:
     return launches
 
 
+def _sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def _timed(fn, *args):
-    """(fn(*args), seconds), the device synchronised before and after."""
-    torch.cuda.synchronize()
+    """(fn(*args), seconds), every device synchronised before and after."""
+    _sync_all()
     t0 = time.perf_counter()
     out = fn(*args)
-    torch.cuda.synchronize()
+    _sync_all()
     return out, time.perf_counter() - t0
 
 
@@ -1048,6 +1104,180 @@ def stream_phase(device) -> tuple[dict, dict]:
     return launches, {"ntt_fwd": hook["ntt_fwd"], "ntt_inv": 0}
 
 
+def _best_ms(fn, reps: int = MESH_REPS) -> float:
+    """Best of `reps` host-clock times of fn(), the device synchronised
+    before and after each, after one warm-up call."""
+    fn()
+    return min(_timed(fn)[1] for _ in range(reps)) * 1e3
+
+
+def _mesh_ops(sk, ctx, a, b, device) -> tuple[dict, dict, tuple]:
+    """Step 8's ops on mesh `sk` and their single-device counterparts on
+    the same data: {name: mesh op}, {name: single-device op}, each
+    returning its int32 data on `device`, and the product (sharded and
+    gathered) that the "rotate product k" ops rotate.  Those rotations
+    carry the decrypt gate: at scale 2^27 a fresh ciphertext's rotation
+    keeps ModDown's rounding error, which a rescale divides by q."""
+    from sorting_fhe_tpu_torch.core.ckks import _kj_mult_relin
+    from sorting_fhe_tpu_torch.parallel.mesh import shard_ciphertext
+    sa, sb = shard_ciphertext(a, sk.mesh), shard_ciphertext(b, sk.mesh)
+    sm = sk.mult_relin(sa, sb)
+    m = sm.gather(device)
+    T = ctx.tables(ctx.params.nq)
+    mesh = {"mult_relin": lambda: sk.mult_relin(sa, sb).gather(device).data}
+    single = {"mult_relin": lambda: _kj_mult_relin(a.data, b.data,
+                                                   ctx.relin_key, T)}
+    for k in MESH_ROTS:
+        mesh[f"rotate {k}"] = lambda k=k: sk.rotate(sa, k).gather(device).data
+        single[f"rotate {k}"] = lambda k=k: ctx.rotate(a, k).data
+        mesh[f"rotate product {k}"] = \
+            lambda k=k: sk.rotate(sm, k).gather(device).data
+        single[f"rotate product {k}"] = lambda k=k: ctx.rotate(m, k).data
+    return mesh, single, m
+
+
+def mesh_phase(device, census: dict) -> dict:
+    """Step 8: parallel/'s ShardedKeyswitch on a virtual mesh of
+    MESH_SLOTS slots on `device`, at ring 2^RING_LOG on MESH_CFG's chain,
+    with the launch counters reset just before its ops and read just
+    after.  Requires HEStd-128; mult_relin, rotate(k) and the product's
+    rotate(k) for k in MESH_ROTS torch.equal to the single-device ops;
+    the product and its rotations, rescaled and decrypted, within
+    MESH_GATE of v*w and np.roll(v*w, -k) (the fresh rotations' error is
+    printed, not gated: see _mesh_ops); exactly two gathers per op, of (D-1)/D of the [lq, n] digit
+    residues and of the [2, ksp, n] special residues; launches of K1 and
+    K2.  Prints each op's launches, its best-of-MESH_REPS ms against the
+    single-device op, the step's peak device memory and comm_budget of
+    `census`; on two cards or more, the same ops on a mesh of distinct
+    cards.  Returns the NTT launches of the ops."""
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.core.ckks import CkksContext
+    from sorting_fhe_tpu_torch.parallel.collective import ShardedKeyswitch
+    from sorting_fhe_tpu_torch.parallel.mesh import (make_mesh,
+                                                     shard_context_tables)
+    from sorting_fhe_tpu_torch.registry import security_check
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg = _mesh_config()
+    t0 = time.perf_counter()
+    ctx = CkksContext(cfg, device=device)
+    ctx.gen_rotation_keys(list(MESH_ROTS))
+    ctx.sync()
+    logqp, limit, sec_ok = security_check(cfg, ctx.params)
+    P = ctx.params
+    print(f"[{MESH_PATH}] {P.describe()}, security logQP {logqp} <= {limit}"
+          f": {sec_ok}; relin + {len(ctx.rot_keys)} rotation keys "
+          f"({(ctx.relin_key.nbytes + ctx.rot_keys.resident_bytes) / 1e9:.3f}"
+          f" GB) in {time.perf_counter() - t0:.1f}s", flush=True)
+    if not sec_ok:
+        raise AssertionError(f"{MESH_PATH}: logQP {logqp} over {limit}")
+    rng = np.random.default_rng(8)
+    v, w = rng.uniform(-1, 1, MESH_N), rng.uniform(-1, 1, MESH_N)
+    a, b = ctx.encrypt(v, slots=MESH_N), ctx.encrypt(w, slots=MESH_N)
+    mesh = make_mesh(devices=[device] * MESH_SLOTS)
+    t0 = time.perf_counter()
+    shard_context_tables(ctx, mesh)
+    sk = ShardedKeyswitch(ctx, mesh)
+    ctx.sync()
+    place_s = time.perf_counter() - t0
+    mesh_ops, single_ops, m = _mesh_ops(sk, ctx, a, b, device)
+
+    # the counted run: every op once, launches per op
+    cuda_ntt.reset_launch_counts()
+    mesh.gather_log.clear()
+    outs, per_op = {}, {}
+    for name, op in mesh_ops.items():
+        k1, k2 = cuda_ntt.ntt_fwd.launches, cuda_ntt.ntt_inv.launches
+        outs[name] = op()
+        per_op[name] = {"ntt_fwd": cuda_ntt.ntt_fwd.launches - k1,
+                        "ntt_inv": cuda_ntt.ntt_inv.launches - k2}
+    torch.cuda.synchronize()
+    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    log = [(g["tag"], g["bytes_per_slot"]) for g in mesh.gather_log]
+    D, n = mesh.size, P.n
+    want = {"digit": (D - 1) * P.nq * n * 4 // D,
+            "moddown": (D - 1) * 2 * P.num_special * n * 4 // D}
+    cb = sk.collective_bytes(k=2)
+
+    equal = {name: torch.equal(out, single_ops[name]())
+             for name, out in outs.items()}
+
+    def err(name, like, want):
+        """Decrypted error of outs[name], with like's metadata; a product
+        (noise degree 2) is rescaled first."""
+        ct = dataclasses.replace(like, data=outs[name])
+        ct = ctx.rescale(ct) if ct.noise_deg == 2 else ct
+        return float(np.abs(ctx.decrypt(ct)[:MESH_N] - want).max())
+
+    errs = {"mult_relin": err("mult_relin", m, v * w)}
+    fresh = {}
+    for k in MESH_ROTS:
+        errs[f"rotate product {k}"] = err(f"rotate product {k}", m,
+                                          np.roll(v * w, -k))
+        fresh[f"rotate {k}"] = err(f"rotate {k}", a, np.roll(v, -k))
+    times = {name: {"mesh_ms": _best_ms(mesh_ops[name]),
+                    "single_ms": _best_ms(single_ops[name])}
+             for name in mesh_ops if not name.startswith("rotate product")}
+    print(f"[{MESH_PATH}] " + json.dumps({
+        "slots": D, "devices": [str(d) for d in mesh.devices],
+        "limbs": P.nq, "special": P.num_special, "dnum": cfg.dnum,
+        "block_rows": [P.nq // D, P.num_special // D],
+        "place_s": place_s, "bit_equal": equal, "max_err": errs,
+        "fresh_rotation_err": fresh, "gathers": log,
+        "collective_bytes": cb, "launches": per_op,
+        "launches_total": launches, "times": times,
+        "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+        "comm_budget": {MESH_CENSUS: census,
+                        "budget": sk.comm_budget(census)}}), flush=True)
+    if not all(equal.values()):
+        raise AssertionError(f"{MESH_PATH}: mesh op != single-device op: "
+                             f"{equal}")
+    if not all(e < MESH_GATE for e in errs.values()):
+        raise AssertionError(f"{MESH_PATH}: decrypted error not below "
+                             f"{MESH_GATE}: {errs}")
+    if (log != [("digit", want["digit"]), ("moddown", want["moddown"])]
+            * len(mesh_ops) or (cb["digit_allgather_B"],
+                                cb["moddown_allgather_B"])
+            != (want["digit"], want["moddown"])):
+        raise AssertionError(f"{MESH_PATH}: gathers {log}, collective_bytes "
+                             f"{cb}, expected 2 per op of {want}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{MESH_PATH}: the mesh ops launched no "
+                             f"kernel: {launches}")
+    mesh_cards(ctx, a, b, device)
+    del ctx, sk, outs, m
+    return launches
+
+
+def mesh_cards(ctx, a, b, device):
+    """Step 8 on a mesh of distinct cards, where there are two or more:
+    the most that divides both the q and the special rows.  The same ops
+    must be torch.equal to the single-device ones; prints their times."""
+    from sorting_fhe_tpu_torch.parallel.collective import ShardedKeyswitch
+    from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
+    P, cards = ctx.params, torch.cuda.device_count()
+    sizes = [d for d in range(2, cards + 1)
+             if P.nq % d == 0 and P.num_special % d == 0]
+    if not sizes:
+        print(f"[{MESH_PATH}] real-device mesh not run: {cards} card(s)",
+              flush=True)
+        return
+    mesh = make_mesh(max(sizes))
+    sk = ShardedKeyswitch(ctx, mesh)
+    mesh_ops, single_ops, _ = _mesh_ops(sk, ctx, a, b, device)
+    equal = {name: torch.equal(op(), single_ops[name]())
+             for name, op in mesh_ops.items()}
+    times = {name: {"mesh_ms": _best_ms(op)} for name, op in mesh_ops.items()}
+    print(f"[{MESH_PATH}] cards: " + json.dumps({
+        "devices": [str(d) for d in mesh.devices], "bit_equal": equal,
+        "times": times}), flush=True)
+    if not all(equal.values()):
+        raise AssertionError(f"{MESH_PATH}: card mesh op != single-device "
+                             f"op: {equal}")
+
+
 def main() -> int:
     print(f"python {platform.python_version()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -1086,10 +1316,10 @@ def main() -> int:
           flush=True)
 
     # 4. the sorts, counting launches path by path
-    launches, mems = {}, {}
+    launches, mems, census = {}, {}, {}
     for label, algo, N, trials in PATHS:
-        launches[label], mems[label] = run_path(label, algo, N, trials,
-                                                device)
+        launches[label], mems[label], census[label] = run_path(
+            label, algo, N, trials, device)
         print(f"[time] {label} done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
     launches[BOOT_PHASE] = bootstrap_phase(device)
@@ -1112,7 +1342,12 @@ def main() -> int:
     print(f"[time] {STREAM_PATH} done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
-    # 8. results
+    # 8. the limb-sharded key switch on a virtual mesh (and on the cards)
+    launches[MESH_PATH] = mesh_phase(device, census[MESH_CENSUS])
+    print(f"[time] {MESH_PATH} done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
+
+    # 9. results
     print(json.dumps({"kernels": kernel_records(largest, table, launches)}),
           flush=True)
     print(card, flush=True)

@@ -18,6 +18,8 @@ reference each part is checked against:
   experiments.py, characterize.py     the reference's report harness and
            sign characterizer
   bench.py sort_bench on one CUDA device
+  parallel/ mesh (limb-sharded placement, the logged all_gather) and
+           collective (the key switch with two explicit gathers)
 
 Imports torch and numpy only, never jax.  The CUDA kernels build at first
 use on a CUDA device (core/cuda_ntt.py).
