@@ -29,7 +29,9 @@
    forward NTT over the whole chain ([2, 107, n], [2, 83, n]).  On step
    8's chain, one slot's blocks of a 4-slot mesh (slot 1's rows): [4, 30,
    n] ext digits, [24, n] decompose, [2, 6, n] special rows and [2, 24,
-   n] ModDown.  K1/K2 must be bit-equal
+   n] ModDown.  On the hybrid1 N=128 chain also step 9's ragged classes:
+   slot 3's [4, 29, n] ext digits (23 q + 6 special rows) and a [2, 1, n]
+   rescale row on one slot.  K1/K2 must be bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
    and class its launch plan, its time (CUDA events over CUDA-graph
    replays, cycling through enough copies of the input that they do not
@@ -119,16 +121,34 @@
    comm_budget of step 4's hybrid1 N=128 census; with two cards or
    more, the same ops on a mesh of distinct cards (bit-equality and
    times), else that it was not run.
-9. Prints the kernel record (one JSON line: each kernel's time and bound
-   at the largest class of the mehp24 chain and its launches on the
-   mehp24 path, and under "paths" the same for every path, the
-   bootstrap phase and steps 6, 7, 7b and 8 (the largest class of the
+9. The row-sharded evaluator (parallel/evaluator.py): hybrid1 N=128 at
+   ring 2^17 on its registry chain (95 q + 24 special primes, dnum 4,
+   HEStd-128), one context with host-keygen keys (the 11 minimal keys
+   and relin) and one input from a fixed seed.  (a) The single-device
+   sort_hybrid1; (b) the same call on shard_context(ctx, a virtual mesh
+   of 4 slots on cuda:0), the input sharded, with the launch counters,
+   the op census and the mesh's gathers reset just before it and read
+   just after; (c) with two cards or more, the same on a mesh of up to 4
+   distinct cards, else a line that it was not run.  Requires (b), and
+   (c) where it runs, torch.equal to (a) once gathered; (b)'s op census
+   equal to (a)'s; max_err < 0.01; launches of K1 and K2 in (b); the
+   gathers per tag that the census implies (digit: key switches -
+   fast_rotate + decompose; moddown: key switches; rescale: rescales);
+   their summed bytes per slot at or below comm_budget of the census
+   (every op at the full level).  Prints the trials' seconds, the rows
+   each slot held at each level, the slowest slot's rows over a balanced
+   share summed over the digit gathers, the step's peak device memory
+   and the launches.
+10. Prints the kernel record (one JSON line: each kernel's time and
+   bound at the largest class of the mehp24 chain and its launches on
+   the mehp24 path, and under "paths" the same for every path, the
+   bootstrap phase and steps 6, 7, 7b, 8 and 9 (the largest class of the
    CLI's chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's, for
    the device keygen the [119, n] class with its K1 launches in 7b's
-   sort, and for the mesh a slot's [4, 30, n] class)), the card's
-   name and power limit, and as the last line {"ok": true, "device":
-   {...}}.  Any failed check raises, so the script exits non-zero and
-   prints no result.
+   sort, for the mesh a slot's [4, 30, n] class and for the sharded
+   sort slot 3's [4, 29, n])), the card's name and power limit, and as
+   the last line {"ok": true, "device": {...}}.  Any failed check
+   raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -204,6 +224,12 @@ MESH_CFG = dict(comp=1, mult_depth=94, scale_bits=28, dnum=4,
                 num_special_primes=24)
 MESH_SLOTS, MESH_N, MESH_ROTS, MESH_GATE, MESH_REPS = 4, 128, (1, 3), 1e-2, 5
 MESH_CENSUS = "hybrid1 N=128"        # step 4's census for comm_budget
+# step 9: the main path's sort, unchanged, on the row-sharded evaluator
+# (4 slots on the registry's comp-2 chain: ragged blocks of 24/24/24/23 q
+# and 6 special rows)
+SHARD_PATH = "mesh hybrid1 N=128"
+SHARD_ALGO, SHARD_N, SHARD_SLOTS, SHARD_SEED = "hybrid1", 128, 4, 9
+SHARD_CHAIN = "hybrid1 N=128"
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -360,9 +386,16 @@ def _chain_classes(P, label: str) -> list:
                (f"[2, {LP - nq}, n] special primes", list(range(nq, LP)),
                 (2,)),
                ("[2, 1, n] rescale row", [nq - 1], (2,))]
-    if label == "hybrid1 N=128":
+    if label == SHARD_CHAIN:     # and step 9's slot 3, ragged
+        from sorting_fhe_tpu_torch.parallel.mesh import row_blocks
+        (lo, hi), (slo, shi) = (row_blocks(c, SHARD_SLOTS)[-1]
+                                for c in (nq, LP - nq))
+        ext = list(range(lo, hi)) + list(range(nq + slo, nq + shi))
         return classes + [(f"[{LP}, n] full prefix", list(range(LP)), ()),
-                          ("[3, n] rows [4, 1, 5]", [4, 1, 5], ())]
+                          ("[3, n] rows [4, 1, 5]", [4, 1, 5], ()),
+                          (f"[{digits}, {len(ext)}, n] slot 3 ext digits",
+                           ext, (digits,)),
+                          ("[2, 1, n] slot rescale row", [lo], (2,))]
     if label in BOOT_PATHS:
         return [big, ("[2, 3, n] mod-raise inv", [0, 1, 2], (2,)),
                 (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,))]
@@ -470,7 +503,8 @@ def _chain_configs() -> list:
     chain = dict(out)
     return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN]),
                   (STREAM_PATH, _stream_config()),
-                  (MESH_PATH, _mesh_config())]
+                  (MESH_PATH, _mesh_config()),
+                  (SHARD_PATH, chain[SHARD_CHAIN])]
 
 
 def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
@@ -501,6 +535,8 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
                     largest[BOOT_PHASE] = row
             if label == STREAM_PATH and name.endswith("keygen"):
                 largest[STREAM_KEYGEN] = row
+            if name.endswith("slot 3 ext digits"):
+                largest[SHARD_PATH] = row
         del P
         gc.collect()
         torch.cuda.empty_cache()
@@ -533,7 +569,7 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
                        **timing(largest[p])}
                       for p in [p for p, *_ in PATHS] + [
                           BOOT_PHASE, CLI_PATH, EXP_PATH, STREAM_PATH,
-                          STREAM_KEYGEN, MESH_PATH]]})
+                          STREAM_KEYGEN, MESH_PATH, SHARD_PATH]]})
     return recs
 
 
@@ -1278,6 +1314,138 @@ def mesh_cards(ctx, a, b, device):
                              f"op: {equal}")
 
 
+def _sharded_sort(ctx, ds_cls, ct, sign, mesh) -> tuple:
+    """hybrid1 on shard_context(ctx, mesh), the op census and the mesh's
+    gathers reset just before: (sharded output, seconds, census, sharded
+    context)."""
+    from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
+    sctx = shard_context(ctx, mesh)
+    ds = ds_cls(sctx, SHARD_N, use_minimal_keys=True)
+    sct = sctx.shard(ct)
+    sctx.sync()
+    ctx.op_counts.clear()
+    mesh.clear_gathers()
+    out, secs = _timed(ds.sort_hybrid1, sct, sign)
+    return out, secs, dict(ctx.op_counts), sctx
+
+
+def sharded_phase(device) -> dict:
+    """Step 9: the main path's hybrid1 N=128 sort (a) on one device and
+    (b) unchanged on the row-sharded evaluator over SHARD_SLOTS virtual
+    slots on `device`, with the launch counters reset just before (b)
+    and read just after; (c) on up to 4 distinct cards where there are
+    two or more.  Requires HEStd-128, (b) and (c) torch.equal to (a),
+    the same op census, max_err < GATE, launches of K1 and K2 in (b),
+    the gathers per tag that the census implies and their bytes within
+    comm_budget.  Returns the NTT launches of (b)."""
+    from sorting_fhe_tpu_torch.bench import GATE
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.core.ckks import CkksContext
+    from sorting_fhe_tpu_torch.models.direct_sort import DirectSort
+    from sorting_fhe_tpu_torch.parallel.collective import comm_budget
+    from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
+    from sorting_fhe_tpu_torch.registry import (full_config, get_params,
+                                                security_check)
+    from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    p = get_params(SHARD_ALGO, SHARD_N)
+    cfg = full_config(p, ring_dim=1 << RING_LOG)
+    t0 = time.perf_counter()
+    ctx = CkksContext(cfg, device=device)
+    ds = DirectSort(ctx, SHARD_N, use_minimal_keys=True)
+    ctx.sync()
+    logqp, limit, sec_ok = security_check(cfg, ctx.params)
+    P = ctx.params
+    print(f"[{SHARD_PATH}] {P.describe()}, security logQP {logqp} <= "
+          f"{limit}: {sec_ok}; relin + {len(ctx.rot_keys)} rotation keys in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not sec_ok:
+        raise AssertionError(f"{SHARD_PATH}: logQP {logqp} over {limit}")
+    v = vector_with_min_diff(SHARD_N, 0, 1, 1.0 / SHARD_N,
+                             np.random.default_rng(SHARD_SEED))
+    ct = ctx.encrypt(v, slots=SHARD_N)
+    sign = p.sign_config()
+
+    ctx.op_counts.clear()                                   # (a)
+    out, single_s = _timed(ds.sort_hybrid1, ct, sign)
+    census = dict(ctx.op_counts)
+    mesh = make_mesh(devices=[device] * SHARD_SLOTS)        # (b)
+    cuda_ntt.reset_launch_counts()
+    sout, mesh_s, mesh_census, sctx = _sharded_sort(ctx, DirectSort, ct,
+                                                    sign, mesh)
+    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    equal = torch.equal(sout.gather(device).data, out.data)
+    err = float(np.abs(sctx.decrypt(sout)[:SHARD_N] - np.sort(v)).max())
+    gathers = {t: dict(g) for t, g in mesh.gathers.items()}
+    ks = sum(census.get(op, 0) for op in ("mult_relin", "square_relin",
+                                          "rotate_fused", "fast_rotate"))
+    want = {"digit": ks - census.get("fast_rotate", 0)
+            + census.get("decompose", 0), "moddown": ks,
+            "rescale": census.get("rescale", 0)}
+    budget = comm_budget(census, P.n, mesh.size, P.nq, P.num_special)
+    moved = sum(g["bytes_per_slot"] for g in gathers.values())
+    levels = sorted(sctx.mesh_tables._levels, reverse=True)
+    digit_rows = [g["shape"][0] for g in mesh.gather_log
+                  if g["tag"] == "digit"]
+    # the slowest slot's q rows over a balanced share, over the digit
+    # gathers (one per key switch that decomposes)
+    imbalance = sum(max(sctx.occupancy(l)) for l in digit_rows) / \
+        sum(l / mesh.size for l in digit_rows)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[{SHARD_PATH}] " + json.dumps({
+        "slots": mesh.size, "devices": [str(d) for d in mesh.devices],
+        "limbs": P.nq, "special": P.num_special, "dnum": cfg.dnum,
+        "single_s": single_s, "mesh_s": mesh_s,
+        "ratio": mesh_s / single_s, "bit_equal": equal, "max_err": err,
+        "log2_err": float(np.log2(max(err, 1e-300))),
+        "census_equal": mesh_census == census, "census": census,
+        "gathers": gathers, "gathers_want": want,
+        "gathered_bytes_per_slot": moved, "comm_budget": budget,
+        "launches": launches, "peak_gb": peak,
+        "levels_out": [out.limbs, sout.limbs],
+        "slowest_slot_over_balanced": imbalance,
+        "occupancy": {l: sctx.occupancy(l) for l in levels}}), flush=True)
+    if not equal:
+        raise AssertionError(f"{SHARD_PATH}: sharded sort != single-device "
+                             "sort")
+    if mesh_census != census:
+        raise AssertionError(f"{SHARD_PATH}: census {mesh_census} != "
+                             f"{census}")
+    if not err < GATE:
+        raise AssertionError(f"{SHARD_PATH}: max_err {err} not below {GATE}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{SHARD_PATH}: the sharded sort launched no "
+                             f"kernel: {launches}")
+    if {t: g["count"] for t, g in gathers.items()} != want:
+        raise AssertionError(f"{SHARD_PATH}: gathers {gathers}, the census "
+                             f"implies {want}")
+    if not moved <= budget["total_receive_B"]:
+        raise AssertionError(f"{SHARD_PATH}: {moved} B per slot over the "
+                             f"budget {budget}")
+    del sctx, sout
+    cards = torch.cuda.device_count()
+    if cards < 2:                                           # (c)
+        print(f"[{SHARD_PATH}] real-device mesh not run: {cards} card(s)",
+              flush=True)
+    else:
+        mesh = make_mesh(min(cards, SHARD_SLOTS))
+        cout, cards_s, cards_census, _ = _sharded_sort(ctx, DirectSort, ct,
+                                                       sign, mesh)
+        equal = torch.equal(cout.gather(device).data, out.data)
+        print(f"[{SHARD_PATH}] cards: " + json.dumps({
+            "devices": [str(d) for d in mesh.devices], "s": cards_s,
+            "bit_equal": equal, "census_equal": cards_census == census}),
+            flush=True)
+        if not equal or cards_census != census:
+            raise AssertionError(f"{SHARD_PATH}: card mesh sort != "
+                                 "single-device sort")
+    del ctx, ds, out
+    return launches
+
+
 def main() -> int:
     print(f"python {platform.python_version()} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
@@ -1347,7 +1515,12 @@ def main() -> int:
     print(f"[time] {MESH_PATH} done at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
-    # 9. results
+    # 9. the main path's sort on the row-sharded evaluator
+    launches[SHARD_PATH] = sharded_phase(device)
+    print(f"[time] {SHARD_PATH} done at "
+          f"{time.perf_counter() - t_start:.1f}s", flush=True)
+
+    # 10. results
     print(json.dumps({"kernels": kernel_records(largest, table, launches)}),
           flush=True)
     print(card, flush=True)

@@ -18,8 +18,9 @@ reference each part is checked against:
   experiments.py, characterize.py     the reference's report harness and
            sign characterizer
   bench.py sort_bench on one CUDA device
-  parallel/ mesh (limb-sharded placement, the logged all_gather) and
-           collective (the key switch with two explicit gathers)
+  parallel/ mesh (row-block placement, the logged all_gather),
+           collective (the key switch with two explicit gathers) and
+           evaluator (shard_context: the context's ops on a mesh)
 
 Imports torch and numpy only, never jax.  The CUDA kernels build at first
 use on a CUDA device (core/cuda_ntt.py).

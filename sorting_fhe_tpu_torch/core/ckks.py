@@ -118,6 +118,8 @@ class _LevelTables:
         self.nq = nq
         self.ksp = ksp
         self.ntt = P.ntt
+        self.device = P.primes_dev.device
+        self.q_host = q[:l]          # the rows' primes as Python ints
 
         def i64(a):
             return torch.tensor(np.asarray(a, dtype=np.int64), dtype=I64,
@@ -248,6 +250,11 @@ def _kj_const_mul(a, w, p):
     return (a.to(I64) * _col(w) % _col(p)).to(I32)
 
 
+def _int_rows(m: int, T) -> torch.Tensor:
+    """An integer (possibly negative) as plain constants of T's rows."""
+    return torch.tensor([m % p for p in T.q_host], dtype=I64, device=T.device)
+
+
 def _kj_rescale(data, steps, T: _LevelTables):
     """Composite rescale: drop the `comp` primes q[l-1], q[l-2], ... in one
     op.  Per dropped prime q_d: (c - lift([c]_{q_d})) * q_d^{-1} (OpenFHE
@@ -336,15 +343,6 @@ def _kj_mult_relin(a, b, ksk, T):
     return _k_keyswitch(d, _kj_decompose(d[2], T), ksk, T)
 
 
-def _kj_square_relin(a, ksk, T):
-    d = _k_square3(a, T.q_p, T.q_rinv)
-    return _k_keyswitch(d, _kj_decompose(d[2], T), ksk, T)
-
-
-def _kj_relin3(data, ksk, T):
-    return _k_keyswitch(data, _kj_decompose(data[2], T), ksk, T)
-
-
 def _kj_fast_rotate(data, precomp, ksk, perm, T):
     """Automorphism of hoisted digits + key inner product + ModDown."""
     exts = _kj_permute(precomp, perm)
@@ -404,7 +402,15 @@ def _kj_mod_raise(data, w, Cw, dinv, DmodR, T_lo: _LevelTables,
 
 class CkksContext:
     """CryptoContext equivalent: params + keys + evaluator + client ops,
-    with every tensor on `device` (the card unless device="cpu")."""
+    with every tensor on `device` (the card unless device="cpu").
+
+    The ops reach ciphertext and plaintext residues only through the
+    methods under "the steps that touch the data" (and mod_raise,
+    conjugate and mult_monomial, which the bootstrap calls): a row-sharded
+    context (parallel/evaluator.py) overrides those, and the level and
+    scale bookkeeping above them is the same code for both."""
+
+    ct_type = Ciphertext
 
     def __init__(self, cfg: CkksConfig, device="cuda"):
         self._init_common(cfg, device)
@@ -558,14 +564,99 @@ class CkksContext:
         g = encoding.galois_element_for_rotation(self.n, kk)
         return self.keygen.gen_rotation_key_dev(g)
 
-    def _perm(self, k: int) -> torch.Tensor:
-        """int64 gather index of the Galois automorphism for rotation k."""
+    def _perm(self, k: int, device=None) -> torch.Tensor:
+        """int64 gather index of the Galois automorphism for rotation k,
+        on `device` (default: the context's), cached per device."""
         if k not in self._perm_cache:
             g = encoding.galois_element_for_rotation(self.n, k)
             self._perm_cache[k] = torch.from_numpy(
                 encoding.automorphism_eval_perm(self.n, g).astype(np.int64)
             ).to(self.device)
-        return self._perm_cache[k]
+        perm = self._perm_cache[k]
+        if device is None or perm.device == device:
+            return perm
+        if (k, device) not in self._perm_cache:
+            self._perm_cache[k, device] = perm.to(device)
+        return self._perm_cache[k, device]
+
+    # ---------------- the steps that touch the data ----------------
+    # Ciphertext data is int32 [k, limbs, n], plaintext data [limbs, n];
+    # a row-sharded context holds one row block per slot instead.
+
+    def _local(self, l: int, fn, *args):
+        """A row-local step at limb count l: fn(T, *args), T the level's
+        tables (q_p, q_rinv, rmod, q_host, device); every output row
+        depends on the same row of the inputs alone."""
+        return fn(self.tables(l), *args)
+
+    def _narrow(self, data, limbs: int):
+        """The first `limbs` rows of ciphertext data (a level drop)."""
+        return data[:, :limbs, :]
+
+    def _place(self, data: torch.Tensor):
+        """Ciphertext data made on self.device, in this context's layout."""
+        return data
+
+    def _host_rows(self, data, need: int) -> np.ndarray:
+        """The first `need` rows of ciphertext data on the host (uint32):
+        only the rows decryption uses are copied."""
+        return data[:, :need, :].cpu().numpy().view(np.uint32)
+
+    def _to_eval_domain(self, rows: np.ndarray, limbs: int):
+        """Host plain-coefficient rows [limbs, n] (uint32 < p) -> device
+        plaintext data in the NTT+Montgomery domain."""
+        T = self.tables(limbs)
+        x = torch.from_numpy(rows.view(np.int32)).to(self.device)
+        return _kj_encode(x, T.rmod, T)
+
+    def _rescale_data(self, data, l: int):
+        """The composite rescale's residues (comp rows dropped)."""
+        return _kj_rescale(data, self._rescale_consts(l), self.tables(l))
+
+    def _decompose(self, c1, l: int):
+        """Hoisted ext digits of one poly [l, n] (the key switch's first
+        half)."""
+        return _kj_decompose(c1, self.tables(l))
+
+    def _keyswitch(self, exts, tag, l: int):
+        """The key switch's second half, int64 [2, l, n]: ModDown of the
+        inner product of `exts` with the relinearisation key (tag
+        "relin") or with rotation tag's key, the digits then permuted by
+        that rotation's automorphism first."""
+        T = self.tables(l)
+        if tag == "relin":
+            key = self.relin_key
+        else:
+            key = self.rot_keys[tag]
+            exts = _kj_permute(exts, self._perm(tag))
+        return _k_moddown(_k_ks_inner(exts, key, T), T)
+
+    # ---------------- ops composed from those steps ----------------
+    def _const_mul(self, data, m: int, l: int):
+        """data at limb count l times the integer m (any sign)."""
+        return self._local(l, lambda T, x: _kj_const_mul(x, _int_rows(m, T),
+                                                         T.q_p), data)
+
+    def _relin(self, d, l: int):
+        """[3, l, n] -> d[:2] + ModDown(<decompose(d[2]), relin key>)."""
+        exts = self._decompose(self._local(l, lambda T, x: x[2], d), l)
+        dd = self._keyswitch(exts, "relin", l)
+        return self._local(l, lambda T, x, y: add_mod(
+            x[:2], y, _col(T.q_p)).to(I32), d, dd)
+
+    def _fast_rotate(self, data, exts, kk: int, l: int):
+        """Automorphism kk of hoisted digits + key inner product + ModDown,
+        and c0's automorphism added."""
+        dd = self._keyswitch(exts, kk, l)
+
+        def tail(T, x, y):
+            c0 = add_mod(_kj_permute(x[0:1], self._perm(kk, T.device)),
+                         y[0:1], _col(T.q_p))
+            return torch.cat([c0, y[1:2]], dim=0).to(I32)
+        return self._local(l, tail, data, dd)
+
+    def _c1(self, ct: Ciphertext):
+        return self._local(ct.limbs, lambda T, x: x[1], ct.data)
 
     # ---------------- client ops (host) ----------------
     def encrypt(self, values, slots: int | None = None) -> Ciphertext:
@@ -573,8 +664,8 @@ class CkksContext:
         coeffs = encoding.encode_real(np.asarray(values, dtype=np.float64),
                                       self.n, self.delta, slots)
         data = self.encryptor.encrypt_coeffs(coeffs)
-        return Ciphertext(torch.from_numpy(data.view(np.int32)).to(
-            self.device), self.delta, 1, slots)
+        return self.ct_type(self._place(torch.from_numpy(
+            data.view(np.int32)).to(self.device)), self.delta, 1, slots)
 
     def decrypt(self, ct: Ciphertext, complex_out: bool = False) -> np.ndarray:
         if self.decryptor is None:
@@ -587,8 +678,7 @@ class CkksContext:
             acc += np.log2(float(self.params.q[need]))
             need += 1
         need = min(ct.limbs, need)
-        # slice on the device: only the limbs decryption uses are copied
-        data = ct.data[:, :need, :].cpu().numpy().view(np.uint32)
+        data = self._host_rows(ct.data, need)
         coeffs = self.decryptor.decrypt_to_coeffs(
             data, need, max_limbs=need)
         return encoding.decode_real(coeffs.astype(np.float64), self.n,
@@ -596,14 +686,14 @@ class CkksContext:
                                     complex_out=complex_out)
 
     def zero_like(self, ct: Ciphertext) -> Ciphertext:
-        return Ciphertext(torch.zeros_like(ct.data), ct.scale, ct.noise_deg,
-                          ct.slots)
+        return replace(ct, data=self._local(
+            ct.limbs, lambda T, x: torch.zeros_like(x), ct.data))
 
     def fresh_zero(self, slots: int | None = None) -> Ciphertext:
         slots = slots or self.params.num_slots
         z = torch.zeros((2, self.params.nq, self.n), dtype=I32,
                         device=self.device)
-        return Ciphertext(z, self.delta, 1, slots)
+        return self.ct_type(self._place(z), self.delta, 1, slots)
 
     # ---------------- plaintext encoding ----------------
     def make_plaintext(self, values, limbs: int, scale: float,
@@ -640,18 +730,6 @@ class CkksContext:
         self.pt_encode_count += 1
         return self._pt_put(key, pt, limbs * self.n * 4)
 
-    def _to_eval_domain(self, rows: np.ndarray, limbs: int) -> torch.Tensor:
-        """Host plain-coefficient rows [limbs, n] (uint32 < p) -> device
-        tensor in the NTT+Montgomery domain."""
-        T = self.tables(limbs)
-        x = torch.from_numpy(rows.view(np.int32)).to(self.device)
-        return _kj_encode(x, T.rmod, T)
-
-    def _scalar_limb_consts(self, m: int, limbs: int) -> torch.Tensor:
-        """Integer scalar (possibly negative) as per-limb plain constants."""
-        return torch.tensor([m % self.params.q[i] for i in range(limbs)],
-                            dtype=I64, device=self.device)
-
     # ---------------- rescale / level management ----------------
     def rescale(self, ct: Ciphertext) -> Ciphertext:
         """Composite rescale: drop `comp` primes (one level, one op)."""
@@ -659,19 +737,18 @@ class CkksContext:
         l = ct.limbs
         assert l - comp >= self.params.base_limbs, \
             "cannot rescale below base limbs"
-        T = self.tables(l)
         dropped = 1.0
         for i in range(comp):
             dropped *= float(self.params.q[l - 1 - i])
         self.op_counts["rescale"] += 1
-        data = _kj_rescale(ct.data, self._rescale_consts(l), T)
-        return Ciphertext(data, ct.scale / dropped, 1, ct.slots)
+        return replace(ct, data=self._rescale_data(ct.data, l),
+                       scale=ct.scale / dropped, noise_deg=1)
 
     def level_reduce(self, ct: Ciphertext, target_limbs: int) -> Ciphertext:
         assert target_limbs <= ct.limbs
         if target_limbs == ct.limbs:
             return ct
-        return replace(ct, data=ct.data[:, :target_limbs, :])
+        return replace(ct, data=self._narrow(ct.data, target_limbs))
 
     def _ensure_deg1(self, ct: Ciphertext) -> Ciphertext:
         return self.rescale(ct) if ct.noise_deg == 2 else ct
@@ -713,11 +790,9 @@ class CkksContext:
         assert m >= 1, (
             f"adjust_to multiplier underflow: scale={ct.scale:.6g} "
             f"target={target_scale:.6g} qd={qd:.6g}")
-        w = self._scalar_limb_consts(m, ct.limbs)
-        T = self.tables(ct.limbs)
         self.op_counts["adjust"] += 1
-        data = _kj_const_mul(ct.data, w, T.q_p)
-        ct = Ciphertext(data, ct.scale * m, 1, ct.slots)
+        ct = replace(ct, data=self._const_mul(ct.data, m, ct.limbs),
+                     scale=ct.scale * m, noise_deg=1)
         return self.rescale(ct)
 
     def _match_add(self, a: Ciphertext, b: Ciphertext):
@@ -755,10 +830,8 @@ class CkksContext:
         """Multiply deg-1 ct by integer ~ target_scale/scale (no rescale)."""
         m = int(round(target_scale / ct.scale))
         assert m >= 1
-        w = self._scalar_limb_consts(m, ct.limbs)
-        T = self.tables(ct.limbs)
-        data = _kj_const_mul(ct.data, w, T.q_p)
-        return Ciphertext(data, ct.scale * m, 2, ct.slots)
+        return replace(ct, data=self._const_mul(ct.data, m, ct.limbs),
+                       scale=ct.scale * m, noise_deg=2)
 
     def _match_components(self, a: Ciphertext, b: Ciphertext):
         """Pad component counts (deg-2 + deg-1 adds)."""
@@ -766,9 +839,11 @@ class CkksContext:
             return a, b
 
         def pad(x: Ciphertext, k: int) -> Ciphertext:
-            z = torch.zeros((k - x.k,) + tuple(x.data.shape[1:]),
-                            dtype=x.data.dtype, device=x.data.device)
-            return replace(x, data=torch.cat([x.data, z], dim=0))
+            def f(T, d):
+                z = torch.zeros((k - d.shape[0],) + tuple(d.shape[1:]),
+                                dtype=d.dtype, device=d.device)
+                return torch.cat([d, z], dim=0)
+            return replace(x, data=self._local(x.limbs, f, x.data))
         return (pad(a, b.k), b) if a.k < b.k else (a, pad(b, a.k))
 
     # ---------------- arithmetic: add/sub ----------------
@@ -776,11 +851,11 @@ class CkksContext:
         if isinstance(b, Ciphertext):
             a, b = self._match_add(a, b)
             a, b = self._match_components(a, b)
-            T = self.tables(a.limbs)
             self.op_counts["add"] += 1
-            data = _kj_add(a.data, b.data, _col(T.q_p))
-            return Ciphertext(data, a.scale, max(a.noise_deg, b.noise_deg),
-                              a.slots)
+            data = self._local(a.limbs, lambda T, x, y: _kj_add(
+                x, y, _col(T.q_p)), a.data, b.data)
+            return replace(a, data=data,
+                           noise_deg=max(a.noise_deg, b.noise_deg))
         if isinstance(b, Plaintext):
             return self._add_pt(a, b, sub=False)
         return self._add_scalar(a, float(b), sub=False)
@@ -789,11 +864,11 @@ class CkksContext:
         if isinstance(b, Ciphertext):
             a, b = self._match_add(a, b)
             a, b = self._match_components(a, b)
-            T = self.tables(a.limbs)
             self.op_counts["add"] += 1
-            data = _kj_sub(a.data, b.data, _col(T.q_p))
-            return Ciphertext(data, a.scale, max(a.noise_deg, b.noise_deg),
-                              a.slots)
+            data = self._local(a.limbs, lambda T, x, y: _kj_sub(
+                x, y, _col(T.q_p)), a.data, b.data)
+            return replace(a, data=data,
+                           noise_deg=max(a.noise_deg, b.noise_deg))
         if isinstance(b, Plaintext):
             return self._add_pt(a, b, sub=True)
         return self._add_scalar(a, float(b), sub=True)
@@ -803,19 +878,19 @@ class CkksContext:
         return self.negate(self.sub(a, b))
 
     def negate(self, a: Ciphertext) -> Ciphertext:
-        T = self.tables(a.limbs)
-        return replace(a, data=_kj_negate(a.data, _col(T.q_p)))
+        return replace(a, data=self._local(
+            a.limbs, lambda T, x: _kj_negate(x, _col(T.q_p)), a.data))
 
     def _add_pt(self, a: Ciphertext, pt: Plaintext, sub: bool) -> Ciphertext:
         rows = a.limbs
         assert pt.data.shape[0] >= rows, "plaintext too short"
         assert abs(pt.scale / a.scale - 1) < SCALE_TOL, (pt.scale, a.scale)
-        T = self.tables(rows)
-        p = _col(T.q_p)
-        ptd = pt.data[:rows][None]
-        c0 = sub_mod(a.data[0:1], ptd, p) if sub else add_mod(
-            a.data[0:1], ptd, p)
-        return replace(a, data=torch.cat([c0.to(I32), a.data[1:]], dim=0))
+
+        def f(T, x, y):
+            p, ptd = _col(T.q_p), y[:x.shape[1]][None]
+            c0 = sub_mod(x[0:1], ptd, p) if sub else add_mod(x[0:1], ptd, p)
+            return torch.cat([c0.to(I32), x[1:]], dim=0)
+        return replace(a, data=self._local(rows, f, a.data, pt.data))
 
     def _add_scalar(self, a: Ciphertext, c: float, sub: bool) -> Ciphertext:
         """Add/sub a real constant: encode at exact scale on the constant
@@ -823,14 +898,15 @@ class CkksContext:
         m = int(round(c * a.scale))
         if sub:
             m = -m
-        # constant poly: value m at coeff 0 -> NTT is constant m across
-        # slots, in Montgomery form
-        wm = torch.tensor([(m % p) * ((1 << 32) % p) % p
-                           for p in self.params.q[:a.limbs]],
-                          dtype=I64, device=self.device)
-        T = self.tables(a.limbs)
-        c0 = add_mod(a.data[0:1], _col(wm), _col(T.q_p))
-        return replace(a, data=torch.cat([c0.to(I32), a.data[1:]], dim=0))
+
+        def f(T, x):
+            # constant poly: value m at coeff 0 -> NTT is constant m across
+            # slots, in Montgomery form
+            wm = torch.tensor([(m % p) * ((1 << 32) % p) % p
+                               for p in T.q_host], dtype=I64, device=T.device)
+            c0 = add_mod(x[0:1], _col(wm), _col(T.q_p))
+            return torch.cat([c0.to(I32), x[1:]], dim=0)
+        return replace(a, data=self._local(a.limbs, f, a.data))
 
     # ---------------- arithmetic: mult ----------------
     def mult(self, a: Ciphertext, b) -> Ciphertext:
@@ -857,28 +933,30 @@ class CkksContext:
     def _mult_ct(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         a, b = self._prep_mult(a, b)
         assert a.k == 2 and b.k == 2, "relinearize before multiplying"
-        T = self.tables(a.limbs)
-        d = _kj_mult_relin(a.data, b.data, self.relin_key, T)
+        l = a.limbs
+        d = self._relin(self._local(l, lambda T, x, y: _k_mult3(
+            x, y, T.q_p, T.q_rinv), a.data, b.data), l)
         self.mult_count += 1
         self.op_counts["mult_relin"] += 1
-        return Ciphertext(d, a.scale * b.scale, 2, a.slots)
+        return replace(a, data=d, scale=a.scale * b.scale, noise_deg=2)
 
     def square(self, a: Ciphertext) -> Ciphertext:
         a = self._anchor(self._ensure_deg1(a))
-        T = self.tables(a.limbs)
-        d = _kj_square_relin(a.data, self.relin_key, T)
+        l = a.limbs
+        d = self._relin(self._local(l, lambda T, x: _k_square3(
+            x, T.q_p, T.q_rinv), a.data), l)
         self.mult_count += 1
         self.op_counts["square_relin"] += 1
-        return Ciphertext(d, a.scale * a.scale, 2, a.slots)
+        return replace(a, data=d, scale=a.scale * a.scale, noise_deg=2)
 
     def _mult_pt(self, a: Ciphertext, pt: Plaintext) -> Ciphertext:
         a = self._ensure_deg1(a)
         rows = a.limbs
         assert pt.data.shape[0] >= rows, "plaintext too short"
-        T = self.tables(rows)
         self.op_counts["pt_mul"] += 1
-        d = _kj_pt_mul(a.data, pt.data[:rows], T.q_p, T.q_rinv)
-        return Ciphertext(d, a.scale * pt.scale, 2, a.slots)
+        d = self._local(rows, lambda T, x, y: _kj_pt_mul(
+            x, y[:x.shape[1]], T.q_p, T.q_rinv), a.data, pt.data)
+        return replace(a, data=d, scale=a.scale * pt.scale, noise_deg=2)
 
     def mult_delta(self, ct: Ciphertext) -> float:
         """FLEXIBLEAUTO scaling factor for a scalar/plaintext multiply of
@@ -901,11 +979,9 @@ class CkksContext:
         a = self._ensure_deg1(a)
         dl = self.mult_delta(a)
         m = int(round(c * dl))
-        w = self._scalar_limb_consts(m, a.limbs)
-        T = self.tables(a.limbs)
         self.op_counts["const_mul"] += 1
-        data = _kj_const_mul(a.data, w, T.q_p)
-        return Ciphertext(data, a.scale * dl, 2, a.slots)
+        return replace(a, data=self._const_mul(a.data, m, a.limbs),
+                       scale=a.scale * dl, noise_deg=2)
 
     def mult_plain(self, ct: Ciphertext, values, slots: int | None = None
                    ) -> Ciphertext:
@@ -923,17 +999,14 @@ class CkksContext:
             return a
         if m == 0:
             return self.zero_like(a)
-        w = self._scalar_limb_consts(m, a.limbs)
-        T = self.tables(a.limbs)
         self.op_counts["const_mul"] += 1
-        return replace(a, data=_kj_const_mul(a.data, w, T.q_p))
+        return replace(a, data=self._const_mul(a.data, m, a.limbs))
 
     # ---------------- relinearization ----------------
     def relinearize(self, ct: Ciphertext) -> Ciphertext:
         if ct.k == 2:
             return ct
-        T = self.tables(ct.limbs)
-        return replace(ct, data=_kj_relin3(ct.data, self.relin_key, T))
+        return replace(ct, data=self._relin(ct.data, ct.limbs))
 
     # ---------------- rotations ----------------
     def rotate(self, ct: Ciphertext, k: int) -> Ciphertext:
@@ -945,8 +1018,9 @@ class CkksContext:
         if kk == 0 or k % ct.slots == 0:
             return ct
         assert kk in self.rot_keys, f"missing rotation key {k}"
-        T = self.tables(ct.limbs)
-        out = _kj_rotate_fused(ct.data, self.rot_keys[kk], self._perm(kk), T)
+        l = ct.limbs
+        out = self._fast_rotate(ct.data, self._decompose(self._c1(ct), l),
+                                kk, l)
         self.rot_count += 1
         self.op_counts["rotate_fused"] += 1
         return replace(ct, data=out)
@@ -961,18 +1035,18 @@ class CkksContext:
         if kk == 0:
             return ct
         assert kk in self.rot_keys, f"missing rotation key {k}"
-        T = self.tables(ct.limbs)
-        out = _kj_rotate_fused(ct.data, self.rot_keys[kk], self._perm(kk), T)
+        l = ct.limbs
+        out = self._fast_rotate(ct.data, self._decompose(self._c1(ct), l),
+                                kk, l)
         self.rot_count += 1
         self.op_counts["rotate_fused"] += 1
         return replace(ct, data=out)
 
     def fast_rotation_precompute(self, ct: Ciphertext):
         """Hoisted decomposition of c1 (EvalFastRotationPrecompute)."""
-        T = self.tables(ct.limbs)
         self.precompute_count += 1
         self.op_counts["decompose"] += 1
-        return _kj_decompose(ct.data[1], T)
+        return self._decompose(self._c1(ct), ct.limbs)
 
     def fast_rotation(self, ct: Ciphertext, k: int, precomp) -> Ciphertext:
         half = self.n // 2
@@ -980,9 +1054,7 @@ class CkksContext:
         if kk == 0 or k % ct.slots == 0:
             return ct
         assert kk in self.rot_keys, f"missing rotation key {k}"
-        T = self.tables(ct.limbs)
-        out = _kj_fast_rotate(ct.data, precomp, self.rot_keys[kk],
-                              self._perm(kk), T)
+        out = self._fast_rotate(ct.data, precomp, kk, ct.limbs)
         self.rot_count += 1
         self.op_counts["fast_rotate"] += 1
         return replace(ct, data=out)
@@ -1015,8 +1087,8 @@ class CkksContext:
         if kk == 0:
             return pt
         self.op_counts["pt_rotate"] += 1
-        return Plaintext(_kj_permute(pt.data, self._perm(kk)),
-                         pt.scale, pt.slots)
+        return replace(pt, data=self._local(pt.limbs, lambda T, x: _kj_permute(
+            x, self._perm(kk, T.device)), pt.data))
 
     # ---------------- monomial multiplication (free: no key, no level) ----
     def mult_monomial(self, ct: Ciphertext, power: int) -> Ciphertext:

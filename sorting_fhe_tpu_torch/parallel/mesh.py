@@ -11,18 +11,26 @@ is: one process holds every slot's block, and the one collective,
 `all_gather`, copies every block to every slot's device (peer copies
 between cards, copies within device memory on one card).
 
+Row ownership is fixed by the full chain: slot i owns the contiguous
+block of ceil(nq / D) q rows (and ceil(ksp / D) special rows) that starts
+at i * ceil(nq / D); the last blocks may be shorter or empty.  At level l
+a slot holds the rows of its block that are below l, so dropping levels
+narrows blocks and never moves rows between slots.
+
 The one difference from the JAX module: there, `shard_context_tables`
 re-places the context's own arrays, and GSPMD then runs every algorithm
 unchanged on the sharded context.  No PyTorch compiler infers those
-gathers, so here the context's single-device tensors and ops are left as
-they are, and `shard_context_tables` keeps the slots' row blocks beside
-them, on `ctx.mesh_tables`, where the explicit key switch of
-parallel/collective.py reads them.
+gathers, so here `shard_context_tables` keeps the slots' row blocks of
+the tables and keys beside the context's own tensors, on
+`ctx.mesh_tables`, where the explicit key switch (parallel/collective.py)
+and the row-sharded evaluator (parallel/evaluator.py) read them.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -36,15 +44,24 @@ I32 = torch.int32
 
 @dataclass
 class Mesh:
-    """Slots along one mesh axis; `gather_log` records every all_gather
-    (tag, gathered shape, dtype, bytes received per slot)."""
+    """Slots along one mesh axis.  Every all_gather is recorded in
+    `gather_log` (tag, gathered shape, dtype, bytes received per slot)
+    and added to `gathers` (per tag: the count and the summed bytes per
+    slot), which a long run reads instead of the log."""
     devices: list
     axis: str = "limb"
     gather_log: list = field(default_factory=list)
+    gathers: dict = field(default_factory=lambda: collections.defaultdict(
+        lambda: {"count": 0, "bytes_per_slot": 0}))
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def clear_gathers(self):
+        """Empty the log and the per-tag totals."""
+        self.gather_log.clear()
+        self.gathers.clear()
 
 
 def _device(d) -> torch.device:
@@ -97,8 +114,8 @@ def replicated(mesh: Mesh) -> tuple:
 
 def _spec(shape, mesh: Mesh, sharding: tuple) -> tuple:
     """The spec `_put` places with: a dimension that the sharding splits
-    and the mesh size does not divide stays whole (replicated), as key and
-    table row counts are set by the crypto depth, not by the mesh."""
+    and the mesh size does not divide stays whole (replicated), as JAX
+    places key and table row counts set by the crypto depth."""
     spec = tuple(sharding) + (None,) * (len(shape) - len(sharding))
     return tuple(s if s is None or shape[i] % mesh.size == 0 else None
                  for i, s in enumerate(spec))
@@ -106,7 +123,8 @@ def _spec(shape, mesh: Mesh, sharding: tuple) -> tuple:
 
 def _put(t: torch.Tensor, mesh: Mesh, sharding: tuple) -> list:
     """One tensor per slot, on that slot's device: the slot's block of the
-    split dimension, or the whole tensor where `_spec` replicates it."""
+    split dimension, or the whole tensor where `_spec` replicates it (the
+    JAX placement; the evaluator's ragged row blocks are `split_rows`)."""
     split = [i for i, s in enumerate(_spec(t.shape, mesh, sharding))
              if s is not None]
     if not split:
@@ -117,76 +135,102 @@ def _put(t: torch.Tensor, mesh: Mesh, sharding: tuple) -> list:
             for i, d in enumerate(mesh.devices)]
 
 
-def all_gather(blocks: list, mesh: Mesh, axis: int, tag: str) -> list:
-    """The mesh's one collective (JAX's tiled all_gather): for each slot,
-    every slot's block copied to its device and concatenated along `axis`
-    in slot order.  Appends the call to mesh.gather_log, with the bytes
-    each slot receives from the others, (D-1)/D of the gathered tensor
-    for equal blocks, as ShardedKeyswitch.collective_bytes counts them."""
-    out = [torch.cat([b.to(d) for b in blocks], dim=axis)
-           for d in mesh.devices]
-    total = out[0].numel() * out[0].element_size()
-    mesh.gather_log.append({
-        "tag": tag, "shape": list(out[0].shape), "dtype": str(out[0].dtype),
-        "bytes_per_slot": (mesh.size - 1) * total // mesh.size})
+def row_blocks(count: int, slots: int) -> list:
+    """(lo, hi) of each slot's contiguous block of `count` rows: ceil(count
+    / slots) rows each, the last blocks shorter or empty."""
+    b = -(-count // slots)
+    return [(min(i * b, count), min((i + 1) * b, count))
+            for i in range(slots)]
+
+
+class Blocks(list):
+    """One tensor per slot, each the slot's rows (dimension -2) of one
+    logical [..., rows, n] tensor; `shape` is the logical shape."""
+
+    @property
+    def shape(self) -> tuple:
+        first = self[0]
+        return tuple(first.shape[:-2]) + (
+            sum(b.shape[-2] for b in self), first.shape[-1])
+
+
+def split_rows(t: torch.Tensor, mesh: Mesh, count: int | None = None
+               ) -> Blocks:
+    """t's rows (dimension -2) as ragged row blocks on the mesh's devices:
+    slot i takes the rows of its block of row_blocks(count) that t has
+    (count: the row count that fixes ownership, t's own by default)."""
+    rows = t.shape[-2]
+    out = Blocks()
+    for (lo, hi), d in zip(row_blocks(count or rows, mesh.size),
+                           mesh.devices):
+        lo, hi = min(lo, rows), min(hi, rows)
+        out.append(t.narrow(-2, lo, hi - lo).to(d).contiguous())
     return out
 
 
-@dataclass
-class ShardedCiphertext:
-    """A ciphertext as one row block per slot, each on its slot's device:
-    int32 [k, limbs / D, n] (the whole [k, limbs, n] on every slot where
-    D does not divide limbs), NTT + Montgomery domain."""
-    blocks: list
-    scale: float
-    noise_deg: int
-    slots: int
-    limbs: int
+def all_gather(blocks: list, mesh: Mesh, axis: int, tag: str) -> list:
+    """The mesh's one collective (JAX's tiled all_gather): for each slot,
+    every slot's block copied to its device and concatenated along `axis`
+    in slot order.  Logs the call on the mesh with the bytes each slot
+    receives from the others, on average over the slots: (D-1)/D of the
+    gathered tensor, whatever the blocks' sizes (what
+    ShardedKeyswitch.collective_bytes counts)."""
+    out = [torch.cat([b.to(d) for b in blocks], dim=axis)
+           for d in mesh.devices]
+    total = out[0].numel() * out[0].element_size()
+    received = (mesh.size - 1) * total // mesh.size
+    mesh.gather_log.append({
+        "tag": tag, "shape": list(out[0].shape), "dtype": str(out[0].dtype),
+        "bytes_per_slot": received})
+    mesh.gathers[tag]["count"] += 1
+    mesh.gathers[tag]["bytes_per_slot"] += received
+    return out
+
+
+class ShardedCiphertext(Ciphertext):
+    """A ciphertext whose data is Blocks: int32 [k, rows, n] per slot, each
+    on its slot's device, NTT + Montgomery domain.  `limbs`, `k`, the
+    metadata and dataclasses.replace work as on a Ciphertext."""
 
     @property
-    def k(self) -> int:
-        return self.blocks[0].shape[0]
+    def blocks(self) -> Blocks:
+        return self.data
 
     def gather(self, device=None) -> Ciphertext:
         """The port's Ciphertext on `device` (the first slot's by default),
         bit for bit the data that was sharded."""
-        device = self.blocks[0].device if device is None else device
-        if self.blocks[0].shape[1] == self.limbs:
-            data = self.blocks[0].to(device)
-        else:
-            data = torch.cat([b.to(device) for b in self.blocks], dim=1)
-        return Ciphertext(data, self.scale, self.noise_deg, self.slots)
+        device = self.data[0].device if device is None else device
+        return Ciphertext(torch.cat([b.to(device) for b in self.data], dim=1),
+                          self.scale, self.noise_deg, self.slots)
 
 
-def shard_ciphertext(ct: Ciphertext, mesh: Mesh) -> ShardedCiphertext:
-    """Place a Ciphertext's data on the mesh, limb-sharded."""
-    return ShardedCiphertext(_put(ct.data, mesh, limb_sharding(mesh)),
-                             ct.scale, ct.noise_deg, ct.slots, ct.limbs)
-
-
-def _row_blocks(count: int, mesh: Mesh) -> list:
-    """Each slot's indices of `count` rows, as _put places a [count]
-    vector: a block of count / D rows, or every row where D does not
-    divide count.  Host int64 tensors."""
-    return [b.cpu() for b in _put(torch.arange(count), mesh,
-                                  (mesh.axis,))]
+def shard_ciphertext(ct: Ciphertext, mesh: Mesh,
+                     count: int | None = None) -> ShardedCiphertext:
+    """Place a Ciphertext's data on the mesh in ragged row blocks (count:
+    the row count that fixes ownership, the chain's nq for a ciphertext
+    below the full level; ct.limbs by default)."""
+    return ShardedCiphertext(split_rows(ct.data, mesh, count), ct.scale,
+                             ct.noise_deg, ct.slots)
 
 
 class SlotTables:
-    """One slot's share of the full-level tables, on its device.
+    """One slot's share of the tables of limb count l, on its device.
 
-    Rows: its q rows `rows_q` and its special rows `rows_sp` (chain rows
-    nq + i); its ext rows are the two blocks in that order.  Constants are
-    the context's _LevelTables at the full limb count, sliced by those
-    rows: the primes, 2^-32 mod p of the ext rows, the digit decomposition
-    (dig_in per q row; dig_conv [lq, ext rows], every digit's rows a over
-    the slot's columns; the digit spans and, per digit, which of the
-    slot's q rows lie in it) and ModDown (md_in per special row, md_conv
-    [ksp, q rows], md_pinv per q row).  `ntt` is the chain's NttContext on
-    the slot's device: the NTT wrappers take the chain rows."""
+    Rows: its q rows below l, `rows_q` (`lq` of them, from its block of
+    `bq` rows), and its special rows `rows_sp` (chain rows nq + i); its
+    ext rows are the two in that order.  Constants are the context's
+    _LevelTables of limb count l sliced by those rows: the primes,
+    2^-32 mod p of the ext rows, R mod q (`rmod`), the primes as Python
+    ints (`q_host`), the digit decomposition of level l (dig_in per q
+    row; dig_conv [l, ext rows], every digit's rows over the slot's
+    columns; the digit spans and, per digit, which of the slot's q rows
+    lie in it) and ModDown (md_in per special row, md_conv [ksp, q rows],
+    md_pinv per q row).  `ntt` is the chain's NttContext on the slot's
+    device: the NTT wrappers take the chain rows."""
 
-    def __init__(self, P, T, rq, rs, device, ntt):
-        """rq, rs: host int64 indices of the slot's q and special rows."""
+    def __init__(self, P, T, rq, rs, bq, device, ntt):
+        """rq, rs: host int64 indices of the slot's q rows below T.l and of
+        its special rows; bq: the size of its q block."""
         l = T.l
         here = T.q_p.device
         q, s = rq.to(here), rs.to(here)
@@ -195,14 +239,17 @@ class SlotTables:
         def on(x):
             return x.to(device)
 
+        self.l, self.lq, self.bq = l, len(rq), bq
         self.device = device
         self.ntt = ntt
+        self.q_host = [P.q[i] for i in rq.tolist()]
         self.rows_q = on(rq.to(I32))
         self.rows_sp = on((P.nq + rs).to(I32))
         self.rows_ext = torch.cat([self.rows_q, self.rows_sp])
         self.q_p, self.sp_p, self.ext_p = on(T.q_p[q]), on(T.sp_p[s]), \
             on(T.ext_p[e])
         self.q_rinv, self.ext_rinv = on(T.q_rinv[q]), on(T.ext_rinv[e])
+        self.rmod = on(T.rmod[q])
         self.dig_in = on(torch.cat(T.dig_in)[q])
         self.dig_conv = on(torch.cat(T.dig_conv)[:, e])
         self.digit_spans = [(d[0], d[-1] + 1) for d in T.digits]
@@ -216,36 +263,68 @@ class SlotTables:
         self.md_conv = on(T.md_conv[:, q])
         self.md_pinv = on(T.md_pinv[q])
 
+    def key_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """The slot's key rows at this level from its full-level key block
+        [dnum, 2, bq + special rows, n]: its q rows below l and its
+        special rows."""
+        if self.lq == self.bq:
+            return block
+        return torch.cat([block[:, :, :self.lq], block[:, :, self.bq:]],
+                         dim=2)
+
 
 class MeshTables:
-    """Every slot's SlotTables at the full limb count, and the key blocks:
-    a [dnum, 2, nq + ksp, n] key as one [dnum, 2, ext rows, n] block per
-    slot (its q rows, then its special rows), taken when the key is first
-    placed."""
+    """Every slot's SlotTables, made per limb count on first use and kept
+    (`level(l)`; `slots` is the full level's), and the key blocks: a
+    [dnum, 2, nq + ksp, n] key as one [dnum, 2, bq + bs, n] block per slot
+    (its q block, then its special block), taken when the key is first
+    placed.  Blocks follow row_blocks(nq) and row_blocks(ksp)."""
 
     def __init__(self, ctx, mesh: Mesh):
         P = ctx.params
-        T = ctx.tables(P.nq)
         self.mesh = mesh
+        self._ctx = weakref.ref(ctx)     # the context keeps this object
+        self.q_blocks = row_blocks(P.nq, mesh.size)
+        self.sp_blocks = row_blocks(P.num_special, mesh.size)
         ntts = {}
         for d in mesh.devices:
             if d not in ntts:
                 ntts[d] = _ntt_on(P.ntt, d)
-        self.slots = [SlotTables(P, T, rq, rs, d, ntts[d]) for rq, rs, d in
-                      zip(_row_blocks(P.nq, mesh),
-                          _row_blocks(P.num_special, mesh), mesh.devices)]
+        self.ntts = [ntts[d] for d in mesh.devices]
+        self._levels: dict = {}
         self.keys: dict = {}
         self.key_blocks("relin", ctx.relin_key)
         for kk in list(ctx.rot_keys):
             self.key_blocks(kk, ctx.rot_keys[kk])
 
+    def level(self, l: int) -> list:
+        """The slots' SlotTables of limb count l."""
+        if l not in self._levels:
+            ctx = self._ctx()
+            P, T = ctx.params, ctx.tables(l)
+            self._levels[l] = [
+                SlotTables(P, T, torch.arange(lo, max(lo, min(hi, l))),
+                           torch.arange(slo, shi), hi - lo, d, ntt)
+                for (lo, hi), (slo, shi), d, ntt in zip(
+                    self.q_blocks, self.sp_blocks, self.mesh.devices,
+                    self.ntts)]
+        return self._levels[l]
+
+    @property
+    def slots(self) -> list:
+        return self.level(self.q_blocks[-1][1])
+
     def key_blocks(self, tag, key: torch.Tensor) -> list:
         """The slots' blocks of the key placed under `tag` (a rotation
         index or "relin"), placing `key` on first use."""
         if tag not in self.keys:
+            nq = self.q_blocks[-1][1]
             self.keys[tag] = [
-                key.index_select(2, S.rows_ext.to(key.device).long()).to(
-                    S.device) for S in self.slots]
+                key.index_select(2, torch.cat([
+                    torch.arange(lo, hi), nq + torch.arange(slo, shi)]).to(
+                        key.device)).to(d)
+                for (lo, hi), (slo, shi), d in zip(
+                    self.q_blocks, self.sp_blocks, self.mesh.devices)]
         return self.keys[tag]
 
 
@@ -261,8 +340,9 @@ def _ntt_on(ntt, device: torch.device):
 
 
 def shard_context_tables(ctx, mesh: Mesh):
-    """Give every slot its row blocks of the full-level tables and keys
-    (MeshTables) and keep them on ctx.mesh_tables; the context's own
-    tensors and ops are unchanged.  Returns the context."""
+    """Give every slot its row blocks of the tables and keys (MeshTables)
+    and keep them on ctx.mesh_tables; the context's own tensors and ops
+    are unchanged (parallel/evaluator.shard_context gives a context whose
+    ops run on the mesh).  Returns the context."""
     ctx.mesh_tables = MeshTables(ctx, mesh)
     return ctx
