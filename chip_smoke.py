@@ -31,7 +31,10 @@
    n] ext digits, [24, n] decompose, [2, 6, n] special rows and [2, 24,
    n] ModDown.  On the hybrid1 N=128 chain also step 9's ragged classes:
    slot 3's [4, 29, n] ext digits (23 q + 6 special rows) and a [2, 1, n]
-   rescale row on one slot.  K1/K2 must be bit-equal
+   rescale row on one slot; on the two bootstrapping chains step 10's
+   fullest slot class, slot 0's ext digits ([8, 31, n]: 27 q + 4 special
+   rows of bitonic's chain; [3, 28, n]: 21 + 7 of k-way's).  K1/K2 must be
+   bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
    and class its launch plan, its time (CUDA events over CUDA-graph
    replays, cycling through enough copies of the input that they do not
@@ -45,8 +48,8 @@
    before it and read just after: hybrid1 N=128 (2 trials), mehp24 N=128
    (2 trials; sort_fg with all 35 rotation keys resident), direct,
    hybrid and hybrid2 N=128 (1 trial each), hybrid1 N=512 (the two-block
-   path, 2 trials), bitonic N=4 (2 trials) and the k-way network k=2
-   N=16 (1 trial), both bootstrapping mid-sort (EvalBootstrap, a sparse
+   path, 1 trial), bitonic N=4 (1 trial) and the k-way network k=2 N=16
+   (1 trial), both bootstrapping mid-sort (EvalBootstrap, a sparse
    secret of Hamming weight 64).  Each requires its gate (max_err < 0.01;
    bitonic: its fixture's max error < 1.0 with no slot off by more than
    0.1 on the 0..255 scale), the HEStd-128 security check, launches of
@@ -139,15 +142,37 @@
    each slot held at each level, the slowest slot's rows over a balanced
    share summed over the digit gathers, the step's peak device memory
    and the launches.
-10. Prints the kernel record (one JSON line: each kernel's time and
+10. Step 4's bootstrapping sorts on the row-sharded evaluator: bitonic
+   N=4 and k-way k=2 N=16, each run right after its step-4 path, on that
+   path's context (host-keygen keys), input (step 4's data from seed 42)
+   and first trial's output, which bench.sort_bench hands over (`keep`);
+   the other contexts of step 4 are freed as before.  (a) Is that
+   single-device trial; (b) the same call, its sorter built by
+   bench.build_sorter on shard_context(ctx, a virtual mesh of 4 slots on
+   cuda:0) with a counting BootstrapHook of its own, after what (a) no
+   longer needs is released, the launch counters, the op census, the
+   gathers and the hook's calls reset just before it; (c) with two cards
+   or more, the same on up to 4 distinct cards, else a line that it was
+   not run.  Requires (b), and (c) where it runs, torch.equal to (a);
+   the same census; step 4's gate; a bootstrap in (b), as many as in
+   (a); the gathers per tag that the census and the bootstraps imply
+   (step 9's, and a "raise" gather per bootstrap of (D-1)/D of the [2,
+   3, n] base rows); their bytes per slot at or below comm_budget of the
+   census plus the raise gathers' bytes; launches of K1 and K2 in (b).
+   Prints (a)'s and (b)'s seconds and their ratio, each bootstrap's
+   seconds by phase on the mesh beside one device, the gathers and bytes
+   per tag, the slots' rows at each level and the slowest slot over a
+   balanced share, the launches and the peak device memory.
+11. Prints the kernel record (one JSON line: each kernel's time and
    bound at the largest class of the mehp24 chain and its launches on
    the mehp24 path, and under "paths" the same for every path, the
-   bootstrap phase and steps 6, 7, 7b, 8 and 9 (the largest class of the
-   CLI's chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's, for
-   the device keygen the [119, n] class with its K1 launches in 7b's
-   sort, for the mesh a slot's [4, 30, n] class and for the sharded
-   sort slot 3's [4, 29, n])), the card's name and power limit, and as
-   the last line {"ok": true, "device": {...}}.  Any failed check
+   bootstrap phase and steps 6, 7, 7b, 8, 9 and 10 (the largest class of
+   the CLI's chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's,
+   for the device keygen the [119, n] class with its K1 launches in 7b's
+   sort, for the mesh a slot's [4, 30, n] class, for the sharded sort
+   slot 3's [4, 29, n] and for step 10's sorts slot 0's ext digits)),
+   the card's name and power limit, and as the last line {"ok": true,
+   "device": {...}}.  Any failed check
    raises, so the script exits non-zero and prints no result.
 """
 
@@ -175,14 +200,15 @@ import torch
 
 RING_LOG = 17
 # (label, algo, N, trials), in the order they run; MAIN is this slice's
-# main path
+# main path.  hybrid1 N=512 and bitonic N=4 run one trial each (two until
+# step 10 came), which keeps the script within 1000 s
 PATHS = (("hybrid1 N=128", "hybrid1", 128, 2),
          ("mehp24 N=128", "mehp24", 128, 2),
          ("direct N=128", "direct", 128, 1),
          ("hybrid N=128", "hybrid", 128, 1),
          ("hybrid2 N=128", "hybrid2", 128, 1),
-         ("hybrid1 N=512", "hybrid1", 512, 2),
-         ("bitonic N=4", "bitonic", 4, 2),
+         ("hybrid1 N=512", "hybrid1", 512, 1),
+         ("bitonic N=4", "bitonic", 4, 1),
          ("kway k=2 N=16", "kway", 16, 1))
 MAIN = "mehp24 N=128"
 BOOT_PATHS = ("bitonic N=4", "kway k=2 N=16")
@@ -230,6 +256,14 @@ MESH_CENSUS = "hybrid1 N=128"        # step 4's census for comm_budget
 SHARD_PATH = "mesh hybrid1 N=128"
 SHARD_ALGO, SHARD_N, SHARD_SLOTS, SHARD_SEED = "hybrid1", 128, 4, 9
 SHARD_CHAIN = "hybrid1 N=128"
+# step 10: step 4's bootstrapping sorts, unchanged, on the row-sharded
+# evaluator (4 slots: bitonic N=4's 107 q + 14 special rows in blocks of
+# 27/27/27/26 and 4/4/4/2, k-way k=2 N=16's 83 q + 28 special in blocks of
+# 21/21/21/20 and 7), each keyed by its step-4 path, right after which it
+# runs on that path's context, input and output
+BOOT_MESH = {"bitonic N=4": "mesh bitonic N=4",
+             "kway k=2 N=16": "mesh kway k=2 N=16"}
+BOOT_MESH_SLOTS = 4
 PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
@@ -396,9 +430,15 @@ def _chain_classes(P, label: str) -> list:
                           (f"[{digits}, {len(ext)}, n] slot 3 ext digits",
                            ext, (digits,)),
                           ("[2, 1, n] slot rescale row", [lo], (2,))]
-    if label in BOOT_PATHS:
+    if label in BOOT_PATHS:      # and step 10's slot 0, the fullest
+        from sorting_fhe_tpu_torch.parallel.mesh import row_blocks
+        (lo, hi), (slo, shi) = (row_blocks(c, BOOT_MESH_SLOTS)[0]
+                                for c in (nq, LP - nq))
+        ext = list(range(lo, hi)) + list(range(nq + slo, nq + shi))
         return [big, ("[2, 3, n] mod-raise inv", [0, 1, 2], (2,)),
-                (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,))]
+                (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,)),
+                (f"[{digits}, {len(ext)}, n] slot 0 ext digits", ext,
+                 (digits,))]
     if label == STREAM_PATH:     # the device keygen's NTTs: every row
         return [big, (f"[{LP}, n] keygen", list(range(LP)), ())]
     if label == MESH_PATH:       # one slot's blocks: slot 1's rows
@@ -504,7 +544,9 @@ def _chain_configs() -> list:
     return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN]),
                   (STREAM_PATH, _stream_config()),
                   (MESH_PATH, _mesh_config()),
-                  (SHARD_PATH, chain[SHARD_CHAIN])]
+                  (SHARD_PATH, chain[SHARD_CHAIN])] + [
+                      (mesh, chain[label])
+                      for label, mesh in BOOT_MESH.items()]
 
 
 def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
@@ -537,6 +579,9 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
                 largest[STREAM_KEYGEN] = row
             if name.endswith("slot 3 ext digits"):
                 largest[SHARD_PATH] = row
+            if name.endswith("slot 0 ext digits"):
+                largest.update({p: row for p in paths
+                                if p in BOOT_MESH.values()})
         del P
         gc.collect()
         torch.cuda.empty_cache()
@@ -569,7 +614,8 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
                        **timing(largest[p])}
                       for p in [p for p, *_ in PATHS] + [
                           BOOT_PHASE, CLI_PATH, EXP_PATH, STREAM_PATH,
-                          STREAM_KEYGEN, MESH_PATH, SHARD_PATH]]})
+                          STREAM_KEYGEN, MESH_PATH, SHARD_PATH,
+                          *BOOT_MESH.values()]]})
     return recs
 
 
@@ -578,18 +624,21 @@ def _shape_str(shape) -> str:
         f", 2^{shape[-1].bit_length() - 1}]"
 
 
-def run_path(label, algo, N, trials, device) -> tuple[dict, dict, dict]:
+def run_path(label, algo, N, trials, device, keep: dict | None = None
+             ) -> tuple[dict, dict, dict]:
     """Step 4 for one path: its sort with the launch counters reset just
     before and read just after, the gates, and its printed record.
     Returns the NTT launches of the run, the peak device memory of each
     phase (bench.sort_bench's device_mem) and the last trial's op
-    census."""
+    census.  `keep` receives sort_bench's `keep` and the record ("rec"),
+    for step 10."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.core import cuda_ntt
     gc.collect()
     torch.cuda.empty_cache()
     cuda_ntt.reset_launch_counts()
-    rec = bench.sort_bench(algo, N, RING_LOG, trials=trials, device=device)
+    rec = bench.sort_bench(algo, N, RING_LOG, trials=trials, device=device,
+                           keep=keep)
     launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
                 "ntt_inv": cuda_ntt.ntt_inv.launches}
     brief = {k: rec[k] for k in ("metric", "value", "trials", "max_err",
@@ -623,6 +672,8 @@ def run_path(label, algo, N, trials, device) -> tuple[dict, dict, dict]:
         if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
             raise AssertionError(f"{label} never launched {name} "
                                  f"(per trial {rec['ntt_launches']})")
+    if keep is not None:
+        keep["rec"] = rec
     return launches, rec["device_mem"], rec["op_census"][-1]
 
 
@@ -679,7 +730,7 @@ def cache_bytes(ctx, device, **holders) -> dict:
     no part reaches, with the types of the objects that hold them."""
     parts = {"rot_keys_pinned": ctx.rot_keys._pinned,
              "rot_keys_lru": ctx.rot_keys._lru,
-             "relin_conj": (ctx.relin_key, ctx.conj_key, ctx._conj_perm),
+             "relin_conj": (ctx.relin_key, ctx.conj_key),
              "pt_cache": ctx._pt_cache, "tables": ctx._tables,
              "perm_cache": ctx._perm_cache, "rs_cache": ctx._rs_cache,
              "params": ctx.params, "keygen": ctx.keygen, **holders}
@@ -1314,6 +1365,32 @@ def mesh_cards(ctx, a, b, device):
                              f"op: {equal}")
 
 
+def _census_gathers(census: dict, boots: int = 0) -> dict:
+    """The gathers per tag that an op census implies: a digit gather per
+    key switch that decomposes (hoisted rotations share their
+    decompose's; conjugations count as rotate_fused), a ModDown gather
+    per key switch, a rescale gather per rescale and, with `boots`
+    bootstraps, a raise gather per bootstrap."""
+    ks = sum(census.get(op, 0) for op in ("mult_relin", "square_relin",
+                                          "rotate_fused", "fast_rotate"))
+    want = {"digit": ks - census.get("fast_rotate", 0)
+            + census.get("decompose", 0), "moddown": ks,
+            "rescale": census.get("rescale", 0)}
+    return {**want, "raise": boots} if boots else want
+
+
+def _balance(sctx, mesh) -> tuple[dict, float]:
+    """The q rows each slot held at each level the run reached, and the
+    slowest slot's q rows over a balanced share, summed over the digit
+    gathers (one per key switch that decomposes)."""
+    levels = sorted(sctx.mesh_tables._levels, reverse=True)
+    digit_rows = [g["shape"][0] for g in mesh.gather_log
+                  if g["tag"] == "digit"]
+    imbalance = sum(max(sctx.occupancy(l)) for l in digit_rows) / \
+        sum(l / mesh.size for l in digit_rows)
+    return {l: sctx.occupancy(l) for l in levels}, imbalance
+
+
 def _sharded_sort(ctx, ds_cls, ct, sign, mesh) -> tuple:
     """hybrid1 on shard_context(ctx, mesh), the op census and the mesh's
     gathers reset just before: (sharded output, seconds, census, sharded
@@ -1380,20 +1457,10 @@ def sharded_phase(device) -> dict:
     equal = torch.equal(sout.gather(device).data, out.data)
     err = float(np.abs(sctx.decrypt(sout)[:SHARD_N] - np.sort(v)).max())
     gathers = {t: dict(g) for t, g in mesh.gathers.items()}
-    ks = sum(census.get(op, 0) for op in ("mult_relin", "square_relin",
-                                          "rotate_fused", "fast_rotate"))
-    want = {"digit": ks - census.get("fast_rotate", 0)
-            + census.get("decompose", 0), "moddown": ks,
-            "rescale": census.get("rescale", 0)}
+    want = _census_gathers(census)
     budget = comm_budget(census, P.n, mesh.size, P.nq, P.num_special)
     moved = sum(g["bytes_per_slot"] for g in gathers.values())
-    levels = sorted(sctx.mesh_tables._levels, reverse=True)
-    digit_rows = [g["shape"][0] for g in mesh.gather_log
-                  if g["tag"] == "digit"]
-    # the slowest slot's q rows over a balanced share, over the digit
-    # gathers (one per key switch that decomposes)
-    imbalance = sum(max(sctx.occupancy(l)) for l in digit_rows) / \
-        sum(l / mesh.size for l in digit_rows)
+    occupancy, imbalance = _balance(sctx, mesh)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     print(f"[{SHARD_PATH}] " + json.dumps({
         "slots": mesh.size, "devices": [str(d) for d in mesh.devices],
@@ -1407,7 +1474,7 @@ def sharded_phase(device) -> dict:
         "launches": launches, "peak_gb": peak,
         "levels_out": [out.limbs, sout.limbs],
         "slowest_slot_over_balanced": imbalance,
-        "occupancy": {l: sctx.occupancy(l) for l in levels}}), flush=True)
+        "occupancy": occupancy}), flush=True)
     if not equal:
         raise AssertionError(f"{SHARD_PATH}: sharded sort != single-device "
                              "sort")
@@ -1443,6 +1510,151 @@ def sharded_phase(device) -> dict:
             raise AssertionError(f"{SHARD_PATH}: card mesh sort != "
                                  "single-device sort")
     del ctx, ds, out
+    return launches
+
+
+def _boot_mesh_sort(ctx, algo, N, p, ct, sign, mesh) -> dict:
+    """The (algo, N) sort built by bench.build_sorter on shard_context(ctx,
+    mesh) with a counting BootstrapHook of its own, the launch counters,
+    the op census, the mesh's gathers and the hook's calls reset just
+    before the sort: its output, seconds, census, hook and NTT launches,
+    and the sharded context."""
+    from sorting_fhe_tpu_torch import bench
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.core.bootstrap import BootstrapHook
+    from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
+    sctx = shard_context(ctx, mesh)
+    hook = bench.TimedHook(BootstrapHook(sctx))
+    sort_fn, _, _ = bench.build_sorter(sctx, algo, N, p, hook=hook)
+    sct = sctx.shard(ct)
+    sctx.sync()
+    cuda_ntt.reset_launch_counts()
+    ctx.op_counts.clear()
+    mesh.clear_gathers()
+    hook.calls = []
+    out, secs = _timed(sort_fn, sct, sign)
+    return {"out": out, "s": secs, "census": dict(ctx.op_counts),
+            "hook": hook, "sctx": sctx,
+            "launches": {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                         "ntt_inv": cuda_ntt.ntt_inv.launches}}
+
+
+def boot_mesh_phase(device, label: str, run: dict) -> dict:
+    """Step 10 for step 4's bootstrapping sort `label`, on what its step-4
+    run kept (`run`: bench.sort_bench's `keep` and its record, "rec"):
+    (a) is that run's first trial on one device; (b) the same call, its
+    sorter built by bench.build_sorter, on the row-sharded evaluator over
+    BOOT_MESH_SLOTS virtual slots on `device`, on the same context and
+    input, after what (a) no longer needs is released; (c) on up to 4
+    distinct cards where there are two or more.  Requires (b), and (c)
+    where it runs, torch.equal to (a)'s output; (a)'s op census; step 4's
+    gate; as many bootstraps as (a), at least one; the gathers per tag
+    that the census and the bootstraps imply; their bytes per slot within
+    comm_budget of the census plus the raise gathers' own, which
+    comm_budget does not count; launches of K1 and K2 in (b).  Returns
+    the NTT launches of (b)."""
+    from sorting_fhe_tpu_torch import bench
+    from sorting_fhe_tpu_torch.parallel.collective import comm_budget
+    from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
+    name = BOOT_MESH[label]
+    algo, N = next((a, n) for lb, a, n, _ in PATHS if lb == label)
+    ctx, ct, out, v = run["ctx"], run["ct"], run["out"], run["values"]
+    p, sign, slots, rec = run["params"], run["sign"], run["slots"], run["rec"]
+    single_s, census = rec["trials"][0], rec["op_census"][0]
+    single_boots = rec["bootstraps"][0]
+    a_peak = rec["device_mem"]["sort"]["peak_gb"]
+    P, cfg = ctx.params, ctx.cfg
+    ctx._pt_cache.clear()      # (a)'s plaintexts: (b) encodes its own
+    ctx._pt_cache_bytes = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    mesh = make_mesh(devices=[device] * BOOT_MESH_SLOTS)    # (b)
+    b = _boot_mesh_sort(ctx, algo, N, p, ct, sign, mesh)
+    sctx, sout, boots = b["sctx"], b["out"], b["hook"].calls
+    equal = torch.equal(sout.gather(device).data, out.data)
+    err = np.abs(sctx.decrypt(sout)[:N] - np.sort(v))
+    if algo == "bitonic":
+        gate = {"max_err_below": bench.BITONIC_GATE[0],
+                "slot_err_above": bench.BITONIC_GATE[1],
+                "slots_above": int((err > bench.BITONIC_GATE[1]).sum())}
+        gate["ok"] = bool(err.max() < gate["max_err_below"]
+                          and gate["slots_above"] == 0)
+    else:
+        gate = {"max_err_below": bench.GATE,
+                "ok": bool(err.max() < bench.GATE)}
+    D = mesh.size
+    gathers = {t: dict(g) for t, g in mesh.gathers.items()}
+    want = _census_gathers(census, len(boots))
+    l0 = b["hook"].setup(slots).raise_limbs
+    raise_bytes = len(boots) * ((D - 1) * 2 * l0 * P.n * 4 // D)
+    budget = comm_budget(census, P.n, D, P.nq, P.num_special)
+    moved = sum(g["bytes_per_slot"] for g in gathers.values())
+    occupancy, imbalance = _balance(sctx, mesh)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[{name}] " + json.dumps({
+        "slots": D, "devices": [str(d) for d in mesh.devices],
+        "limbs": P.nq, "special": P.num_special, "dnum": cfg.dnum,
+        "blocks": [[hi - lo for lo, hi in sctx.mesh_tables.q_blocks],
+                   [hi - lo for lo, hi in sctx.mesh_tables.sp_blocks]],
+        "single_s": single_s, "mesh_s": b["s"], "ratio": b["s"] / single_s,
+        "bit_equal": equal, "max_err": float(err.max()),
+        "log2_err": float(np.log2(max(err.max(), 1e-300))), "gate": gate,
+        "census_equal": b["census"] == census, "census": census,
+        "bootstraps": [len(single_boots), len(boots)],
+        "bootstrap_phase_s": [
+            {"limbs": [m["limbs_in"], m["limbs_out"]], "single_s": a["s"],
+             "mesh_s": m["s"], "single": a["phase_s"], "mesh": m["phase_s"]}
+            for a, m in zip(single_boots, boots)],
+        "gathers": gathers, "gathers_want": want,
+        "raise_bytes_want": raise_bytes,
+        "gathered_bytes_per_slot": moved, "comm_budget": budget,
+        "launches": b["launches"], "peak_gb": peak,
+        "single_peak_gb": a_peak, "levels_out": [out.limbs, sout.limbs],
+        "slowest_slot_over_balanced": imbalance,
+        "occupancy": occupancy}), flush=True)
+    if not equal:
+        raise AssertionError(f"{name}: sharded sort != single-device sort")
+    if b["census"] != census:
+        raise AssertionError(f"{name}: census {b['census']} != {census}")
+    if not gate["ok"]:
+        raise AssertionError(f"{name}: outside its gate {gate}")
+    if not boots or len(boots) != len(single_boots):
+        raise AssertionError(f"{name}: bootstraps {len(boots)} on the mesh,"
+                             f" {len(single_boots)} on one device")
+    if {t: g["count"] for t, g in gathers.items()} != want:
+        raise AssertionError(f"{name}: gathers {gathers}, the census and "
+                             f"the bootstraps imply {want}")
+    if gathers["raise"]["bytes_per_slot"] != raise_bytes:
+        raise AssertionError(f"{name}: raise gathers moved "
+                             f"{gathers['raise']} B per slot, not "
+                             f"{raise_bytes}")
+    if not moved <= budget["total_receive_B"] + raise_bytes:
+        raise AssertionError(f"{name}: {moved} B per slot over the budget "
+                             f"{budget} + {raise_bytes} B of raises")
+    launches = b["launches"]
+    del b, sctx, sout
+    cards = torch.cuda.device_count()
+    if cards < 2:                                           # (c)
+        print(f"[{name}] real-device mesh not run: {cards} card(s)",
+              flush=True)
+    else:
+        c = _boot_mesh_sort(ctx, algo, N, p, ct, sign,
+                            make_mesh(min(cards, BOOT_MESH_SLOTS)))
+        equal = torch.equal(c["out"].gather(device).data, out.data)
+        print(f"[{name}] cards: " + json.dumps({
+            "devices": [str(d) for d in c["sctx"].mesh.devices],
+            "s": c["s"], "bit_equal": equal,
+            "census_equal": c["census"] == census}), flush=True)
+        if not equal or c["census"] != census:
+            raise AssertionError(f"{name}: card mesh sort != single-device "
+                                 "sort")
+        del c
+    run.clear()
+    del ctx, out, ct
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{name}: the sharded sort launched no kernel:"
+                             f" {launches}")
     return launches
 
 
@@ -1486,10 +1698,18 @@ def main() -> int:
     # 4. the sorts, counting launches path by path
     launches, mems, census = {}, {}, {}
     for label, algo, N, trials in PATHS:
+        kept = {} if label in BOOT_MESH else None
         launches[label], mems[label], census[label] = run_path(
-            label, algo, N, trials, device)
+            label, algo, N, trials, device, kept)
         print(f"[time] {label} done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
+        if kept is not None:
+            # 10. the same sort on the row-sharded evaluator, on its
+            # context, input and output
+            name = BOOT_MESH[label]
+            launches[name] = boot_mesh_phase(device, label, kept)
+            print(f"[time] {name} done at "
+                  f"{time.perf_counter() - t_start:.1f}s", flush=True)
     launches[BOOT_PHASE] = bootstrap_phase(device)
     print(f"[time] {BOOT_PHASE} done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
@@ -1520,7 +1740,7 @@ def main() -> int:
     print(f"[time] {SHARD_PATH} done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
-    # 10. results
+    # 11. results
     print(json.dumps({"kernels": kernel_records(largest, table, launches)}),
           flush=True)
     print(card, flush=True)

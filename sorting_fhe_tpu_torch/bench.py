@@ -256,10 +256,15 @@ class TimedHook:
 
 def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                device="cuda", seed: int = 42,
-               profile_dir: str | None = None, k: int = 2) -> dict:
+               profile_dir: str | None = None, k: int = 2,
+               keep: dict | None = None) -> dict:
     """Run the (algo, N) encrypted sort at ring 2^ring_log on `device`;
     with `profile_dir`, trace the last trial (see profile_summary).  `k`
-    is the k-way network's k (N = k^M)."""
+    is the k-way network's k (N = k^M).  `keep`, a dict, receives what a
+    caller needs to run the same sort again: the context ("ctx"), the
+    input ("ct") and its values ("values"), the first trial's output
+    ("out"), the sign config ("sign"), the registry's SortParams
+    ("params") and the slot count ("slots")."""
     from .core import cuda_ntt
     from .core.bootstrap import BootstrapHook
     from .core.ckks import CkksContext
@@ -358,6 +363,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
         ctx.pt_encode_s = 0.0
         ctx.pt_encode_count = 0
         if t == 0:
+            first = out
             err = np.abs(ctx.decrypt(out)[:N] - np.sort(v))
             max_err = float(err.max())
             if algo == "bitonic":
@@ -391,6 +397,9 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                       if device.type == "cuda" else str(device))}
     if prof_summary is not None:
         rec["profile"] = prof_summary
+    if keep is not None:
+        keep.update(ctx=ctx, ct=ct, values=v, out=first, sign=cfg_sign,
+                    params=p, slots=slots)
     return rec
 
 

@@ -7,7 +7,8 @@ runs out (sort_algo.h:1436-1438), the k-way network boots between stages
 (k-way/EvalUtils.cpp:57-94), and compositeSign lazily boots between f/g
 iterations (sign.cpp:160-185).  This module drives the context API only,
 as the JAX module does, so the same calls give the same bits, except where
-mod_raise's float32 correction count rounds the other way (core/ckks.py).
+mod_raise's float32 correction count rounds the other way (core/ckks.py),
+and it runs unchanged on a row-sharded context (parallel/evaluator.py).
 The port adds the host-clock time of each phase of the last bootstrap
 (`Bootstrapper.phase_s`) and `BootstrapHook.setup`, which builds a slot
 width's Bootstrapper and its keys ahead of the first call.

@@ -368,32 +368,47 @@ def _kj_negate(data, p):
     return neg_mod(data, p).to(I32)
 
 
-def _kj_mod_raise(data, w, Cw, dinv, DmodR, T_lo: _LevelTables,
-                  T_hi: _LevelTables):
-    """ModRaise: [k, l0, n] NTT+Mont at modulus D = prod(q[:l0]) ->
-    [k, nq, n] at the full chain, with centered lift.
+def _k_raise_rows(x, w, dinv, q_lo, Cw, DmodR, q_p, lo: int):
+    """ModRaise's CRT extension onto some rows of the full chain, int64
+    [k, rows, n] in the coefficient domain (Montgomery form).
 
-    CRT extension with a float32 correction count: the plain digit values
-    xhat_i determine u = round(sum xhat_i / d_i); subtracting u*D centers
-    the lift in (-D/2, D/2).  The sum runs in float32 from i = 0 up, as
-    the JAX package's does; a misround shifts one coefficient by +-D, an
-    integer multiple of D that EvalMod's periodic sine absorbs
+    x: the Montgomery coefficients [k, l0, n] (int64) of all l0 base rows;
+    w, dinv, q_lo: per base row, [(D/d)^-1 R^-1]_d, float32 1/d and d; Cw
+    [l0, rows], DmodR [rows], q_p [rows]: the target rows' columns of
+    [D/d R]_p, [D R]_p and their primes; lo: the chain index of the first
+    target row (the rows below l0 among them are exact copies of x).
+
+    The plain digit values xhat_i determine u = round(sum xhat_i / d_i);
+    subtracting u*D centers the lift in (-D/2, D/2).  The sum runs in
+    float32 from i = 0 up, as the JAX package's does, so every caller of
+    the same x gets the same count; a misround shifts one coefficient by
+    +-D, an integer multiple of D that EvalMod's periodic sine absorbs
     (core/bootstrap.py)."""
-    l0 = data.shape[1]
-    x = _inv_q(data, T_lo, 0, l0).to(I64)            # [k, l0, n] Mont coeff
-    xhat = x * _col(w) % _col(T_lo.q_p[:l0])         # plain [x (D/d)^-1]_d
+    l0 = x.shape[1]
+    xhat = x * _col(w) % _col(q_lo)                  # plain [x (D/d)^-1]_d
     xf = xhat.to(torch.float32) * _col(dinv)
     y = xf[:, 0]
     for i in range(1, l0):
         y = y + xf[:, i]
     corr = torch.round(y).to(I64)[:, None, :]        # [k, 1, n], <= l0
-    qp = _col(T_hi.q_p)
-    acc = torch.zeros((data.shape[0], T_hi.l, data.shape[2]), dtype=I64,
-                      device=data.device)
+    qp = _col(q_p)
+    acc = torch.zeros((x.shape[0], q_p.shape[0], x.shape[2]), dtype=I64,
+                      device=x.device)
     for i in range(l0):                              # terms < p: no overflow
         acc += xhat[:, i:i + 1] * _col(Cw[i]) % qp
     acc = sub_mod(acc % qp, corr * _col(DmodR) % qp, qp)
-    acc[:, :l0] = x                                  # in-digit rows exact
+    m = max(0, min(l0 - lo, acc.shape[1]))
+    acc[:, :m] = x[:, lo:lo + m]                     # in-digit rows exact
+    return acc
+
+
+def _kj_mod_raise(data, w, Cw, dinv, DmodR, T_lo: _LevelTables,
+                  T_hi: _LevelTables):
+    """ModRaise: [k, l0, n] NTT+Mont at modulus D = prod(q[:l0]) ->
+    [k, nq, n] at the full chain, with centered lift (_k_raise_rows)."""
+    l0 = data.shape[1]
+    x = _inv_q(data, T_lo, 0, l0).to(I64)            # [k, l0, n] Mont coeff
+    acc = _k_raise_rows(x, w, dinv, T_lo.q_p[:l0], Cw, DmodR, T_hi.q_p, 0)
     return _fwd_q(acc, T_hi, T_hi.l)
 
 
@@ -404,9 +419,10 @@ class CkksContext:
     """CryptoContext equivalent: params + keys + evaluator + client ops,
     with every tensor on `device` (the card unless device="cpu").
 
-    The ops reach ciphertext and plaintext residues only through the
-    methods under "the steps that touch the data" (and mod_raise,
-    conjugate and mult_monomial, which the bootstrap calls): a row-sharded
+    The ops, the bootstrap's among them, reach ciphertext and plaintext
+    residues only through the nine methods under "the steps that touch
+    the data" (_local, _narrow, _place, _host_rows, _to_eval_domain,
+    _rescale_data, _decompose, _keyswitch, _mod_raise_data): a row-sharded
     context (parallel/evaluator.py) overrides those, and the level and
     scale bookkeeping above them is the same code for both."""
 
@@ -462,7 +478,6 @@ class CkksContext:
         self.rot_keys = KeyStore((budget_mb << 20) if budget_mb else None,
                                  regen=self._regen_rot_key)
         self.conj_key = None
-        self._conj_perm = None
         self._tables: dict[int, _LevelTables] = {}
         self._rs_cache: dict[int, tuple] = {}
         self._perm_cache: dict[int, torch.Tensor] = {}
@@ -564,11 +579,13 @@ class CkksContext:
         g = encoding.galois_element_for_rotation(self.n, kk)
         return self.keygen.gen_rotation_key_dev(g)
 
-    def _perm(self, k: int, device=None) -> torch.Tensor:
-        """int64 gather index of the Galois automorphism for rotation k,
-        on `device` (default: the context's), cached per device."""
+    def _perm(self, k, device=None) -> torch.Tensor:
+        """int64 gather index of the Galois automorphism for rotation k
+        (for k = "conj": conjugation, Galois element 2n-1), on `device`
+        (default: the context's), cached per device."""
         if k not in self._perm_cache:
-            g = encoding.galois_element_for_rotation(self.n, k)
+            g = 2 * self.n - 1 if k == "conj" else \
+                encoding.galois_element_for_rotation(self.n, k)
             self._perm_cache[k] = torch.from_numpy(
                 encoding.automorphism_eval_perm(self.n, g).astype(np.int64)
             ).to(self.device)
@@ -621,15 +638,24 @@ class CkksContext:
     def _keyswitch(self, exts, tag, l: int):
         """The key switch's second half, int64 [2, l, n]: ModDown of the
         inner product of `exts` with the relinearisation key (tag
-        "relin") or with rotation tag's key, the digits then permuted by
-        that rotation's automorphism first."""
+        "relin"), the conjugation key ("conj") or rotation tag's key, the
+        digits permuted by that automorphism first (not for "relin")."""
         T = self.tables(l)
-        if tag == "relin":
-            key = self.relin_key
-        else:
-            key = self.rot_keys[tag]
+        if tag != "relin":
             exts = _kj_permute(exts, self._perm(tag))
-        return _k_moddown(_k_ks_inner(exts, key, T), T)
+        return _k_moddown(_k_ks_inner(exts, self._key(tag), T), T)
+
+    def _mod_raise_data(self, data, l0: int):
+        """mod_raise's residues: [k, l0, n] -> [k, nq, n]."""
+        w, Cw, dinv, DmodR = self._raise_consts(l0)
+        return _kj_mod_raise(data, w, Cw, dinv, DmodR, self.tables(l0),
+                             self.tables(self.params.nq))
+
+    def _key(self, tag) -> torch.Tensor:
+        """The key-switching key of tag: "relin", "conj" or a rotation."""
+        if tag == "relin":
+            return self.relin_key
+        return self.conj_key if tag == "conj" else self.rot_keys[tag]
 
     # ---------------- ops composed from those steps ----------------
     def _const_mul(self, data, m: int, l: int):
@@ -644,9 +670,9 @@ class CkksContext:
         return self._local(l, lambda T, x, y: add_mod(
             x[:2], y, _col(T.q_p)).to(I32), d, dd)
 
-    def _fast_rotate(self, data, exts, kk: int, l: int):
-        """Automorphism kk of hoisted digits + key inner product + ModDown,
-        and c0's automorphism added."""
+    def _fast_rotate(self, data, exts, kk, l: int):
+        """Automorphism kk (a rotation or "conj") of hoisted digits + key
+        inner product + ModDown, and c0's automorphism added."""
         dd = self._keyswitch(exts, kk, l)
 
         def tail(T, x, y):
@@ -1069,12 +1095,9 @@ class CkksContext:
         """EvalConjugate: slot-wise complex conjugation (sigma_{2n-1})."""
         assert self.conj_key is not None, "call gen_conj_key() first"
         ct = self._ensure_deg1(ct)
-        if self._conj_perm is None:
-            self._conj_perm = torch.from_numpy(
-                encoding.automorphism_eval_perm(self.n, 2 * self.n - 1)
-                .astype(np.int64)).to(self.device)
-        T = self.tables(ct.limbs)
-        out = _kj_rotate_fused(ct.data, self.conj_key, self._conj_perm, T)
+        l = ct.limbs
+        out = self._fast_rotate(ct.data, self._decompose(self._c1(ct), l),
+                                "conj", l)
         self.rot_count += 1
         self.op_counts["rotate_fused"] += 1
         return replace(ct, data=out)
@@ -1111,8 +1134,8 @@ class CkksContext:
                 rows[i, k] = (self.params.q[i] - 1) if neg else 1
             mono = self._pt_put(key, self._to_eval_domain(rows, limbs),
                                 limbs * self.n * 4)
-        T = self.tables(limbs)
-        return replace(ct, data=_kj_pt_mul(ct.data, mono, T.q_p, T.q_rinv))
+        return replace(ct, data=self._local(limbs, lambda T, x, y: _kj_pt_mul(
+            x, y, T.q_p, T.q_rinv), ct.data, mono))
 
     # ---------------- mod raise (bootstrap step 1) ----------------
     def _raise_consts(self, l0: int) -> tuple:
@@ -1148,12 +1171,9 @@ class CkksContext:
         (|I| bounded by the secret's Hamming weight), D = prod(q[:limbs]).
         First step of EvalBootstrap (OpenFHE EvalBootstrap's ModRaise)."""
         l0 = ct.limbs
-        nq = self.params.nq
-        assert l0 < nq, "already at full level"
-        w, Cw, dinv, DmodR = self._raise_consts(l0)
-        data = _kj_mod_raise(ct.data, w, Cw, dinv, DmodR, self.tables(l0),
-                             self.tables(nq))
-        return Ciphertext(data, ct.scale, 1, ct.slots)
+        assert l0 < self.params.nq, "already at full level"
+        return self.ct_type(self._mod_raise_data(ct.data, l0), ct.scale, 1,
+                            ct.slots)
 
     def sync(self):
         """Wait for the device's queued work (host timing of phases)."""

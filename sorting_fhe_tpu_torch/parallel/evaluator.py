@@ -7,7 +7,8 @@ working out the collectives.  Here `shard_context(ctx, mesh)` returns a
 ShardedContext: the same class of context, sharing ctx's params, keys
 and counters, whose ciphertexts and plaintexts hold one row block per
 slot (parallel/mesh.py's ragged ownership).  DirectSort, MEHP24's
-indicator, poly_eval and every other model run on it unchanged.
+indicator, poly_eval, the bootstrap (core/bootstrap.py: Bootstrapper and
+BootstrapHook) and so the bitonic and k-way sorts run on it unchanged.
 
 It overrides only the context's steps that touch the data (core/ckks.py);
 the level and scale bookkeeping is CkksContext's own.  The steps:
@@ -18,12 +19,20 @@ the level and scale bookkeeping is CkksContext's own.  The steps:
 * a level drop narrows each block; no row moves between slots;
 * the key switch: parallel/collective.py's phases at the op's level, two
   gathers ("digit", "moddown"); hoisted rotations share the digit gather;
+  conjugation is the key switch of tag "conj" (the conjugation key's
+  blocks, the automorphism of Galois element 2n-1);
 * rescale: the owners of the `comp` dropped rows inverse-NTT them (K2),
   one gather ("rescale") hands the [k, comp, n] coefficient rows to every
   slot, and each slot lifts them, forward-NTTs (K1), subtracts and
   multiplies by q_d^-1 on its own rows.  The drops after the first take
   the dropped rows updated in coefficient form (the NTT is linear mod p),
   so the result equals the single-device rescale bit for bit;
+* mod_raise from l0 limbs: the owners of the l0 base rows inverse-NTT
+  them (K2), one gather ("raise") hands the [k, l0, n] coefficient rows
+  to every slot, and each slot computes the float32 correction count
+  from all of them, as the single-device op does (so it rounds the same
+  way), extends them onto its own rows of the full chain (its base rows
+  exact copies) and forward-NTTs its block (K1);
 * client ops: encrypt is the single-device encryptor, then placement;
   decrypt copies the rows it needs to one device; plaintexts are encoded
   by each slot from the host rows of its block, into the sharded
@@ -31,9 +40,8 @@ the level and scale bookkeeping is CkksContext's own.  The steps:
 
 Each slot's launches run under torch.cuda.device(slot), which distinct
 cards need.  Not in this slice, and raising NotImplementedError rather
-than gathering to one device: the bootstrap's mod_raise, conjugate and
-mult_monomial, and a context under a rotation-key budget (ROADMAP queue
-1, the remaining mesh work).
+than gathering to one device: a context under a rotation-key budget
+(ROADMAP queue 1, the remaining mesh work).
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core import nt
-from ..core.ckks import CkksContext, _col, _i32, _kj_encode
+from ..core.ckks import CkksContext, _col, _i32, _k_raise_rows, _kj_encode
 from ..core.rns import sub_mod
 from .collective import _on, decompose, fwd, inv, keyswitch
 from .mesh import (Blocks, Mesh, ShardedCiphertext, all_gather,
@@ -93,6 +101,7 @@ class ShardedContext(CkksContext):
         self._pt_host_cache = collections.OrderedDict()
         self._pt_host_bytes = 0
         self._rs_slots: dict[int, list] = {}
+        self._raise_slots: dict[int, list] = {}
 
     def shard(self, ct) -> ShardedCiphertext:
         """A single-device Ciphertext of this context placed on the mesh."""
@@ -139,13 +148,10 @@ class ShardedContext(CkksContext):
 
     def _keyswitch(self, exts, tag, l: int):
         slots = self.mesh_tables.level(l)
-        if tag == "relin":
-            keys = self.mesh_tables.key_blocks("relin", self.relin_key)
-            perms = [None] * len(slots)
-        else:
-            keys = self.mesh_tables.keys.get(tag) or \
-                self.mesh_tables.key_blocks(tag, self.rot_keys[tag])
-            perms = [self._perm(tag, S.device) for S in slots]
+        keys = self.mesh_tables.keys.get(tag) or \
+            self.mesh_tables.key_blocks(tag, self._key(tag))
+        perms = [None if tag == "relin" else self._perm(tag, S.device)
+                 for S in slots]
         return keyswitch(exts, keys, perms, slots, self.mesh)
 
     def _rescale_data(self, data, l: int):
@@ -183,6 +189,37 @@ class ShardedContext(CkksContext):
                 for F in self.mesh_tables.level(base)]
         return self._rs_slots[l]
 
+    def _mod_raise_data(self, data, l0: int):
+        base = []
+        for x, S in zip(data, self.mesh_tables.level(l0)):
+            with _on(S.device):
+                base.append(inv(x, S, S.rows_q))
+        coeffs = all_gather(base, self.mesh, 1, tag="raise")
+        out = Blocks()
+        for c, S, consts in zip(coeffs, self.mesh_tables.slots,
+                                self._raise_consts_slots(l0)):
+            with _on(S.device):
+                out.append(fwd(_k_raise_rows(c.to(I64), *consts), S,
+                               S.rows_q))
+        return out
+
+    def _raise_consts_slots(self, l0: int) -> list:
+        """Per slot, _k_raise_rows' constants for a raise from l0 limbs
+        onto its rows of the full chain, on its device: w, dinv and the
+        primes of the base rows; its columns of Cw and DmodR, its primes
+        and the chain index of its first row."""
+        if l0 not in self._raise_slots:
+            w, Cw, dinv, DmodR = self.base._raise_consts(l0)
+            q_lo = self.tables(l0).q_p
+            out = []
+            for (lo, _), S in zip(self.mesh_tables.q_blocks,
+                                  self.mesh_tables.slots):
+                rows = S.rows_q.long().to(Cw.device)
+                out.append(tuple(t.to(S.device) for t in (
+                    w, dinv, q_lo, Cw[:, rows], DmodR[rows])) + (S.q_p, lo))
+            self._raise_slots[l0] = out
+        return self._raise_slots[l0]
+
     def sync(self):
         """Wait for every slot's device."""
         for d in dict.fromkeys(self.mesh.devices):
@@ -197,15 +234,11 @@ class ShardedContext(CkksContext):
             if kk not in self.mesh_tables.keys:
                 self.mesh_tables.key_blocks(kk, self.rot_keys[kk])
 
-    # ---------------- not on a mesh yet ----------------
-    def mod_raise(self, ct):
-        raise NotImplementedError(f"mod_raise {TODO}")
-
-    def conjugate(self, ct):
-        raise NotImplementedError(f"conjugate {TODO}")
-
-    def mult_monomial(self, ct, power: int):
-        raise NotImplementedError(f"mult_monomial {TODO}")
+    def gen_conj_key(self):
+        """Make the conjugation key on the wrapped context and place its
+        blocks."""
+        self.base.gen_conj_key()
+        self.mesh_tables.key_blocks("conj", self.conj_key)
 
 
 def _rescale_block(x: torch.Tensor, coeffs: torch.Tensor, F, steps

@@ -11,9 +11,11 @@ of 23 q rows in blocks of 3 (a rescale from 19 limbs drops rows 17 and
 
 Tolerances: every sharded op and sort is exact integer arithmetic on the
 same canonical residues as the single-device one, so results must be
-torch.equal (and the op census equal); the decrypt gates are JAX's (1e-2
-for the homomorphic step, 0.5 for the one-iteration rank, 0.02 for the
-sort) and the hybrid1 sort's 0.01.  Under -m slow the JAX runs use
+torch.equal (and the op census equal); so must the bootstrap's
+mod_raise, whose float32 correction count every slot sums from all the
+base rows exactly as one device does, conjugate and mult_monomial.  The
+decrypt gates are JAX's (1e-2 for the homomorphic step, 0.5 for the
+one-iteration rank, 0.02 for the sort) and the hybrid1 sort's 0.01.  Under -m slow the JAX runs use
 limb_pad=1 (ROADMAP queue 3: padding rows change the JAX digit split), so
 the port's sharded outputs must equal them bit for bit.  Two tier-1 tests
 only: `--dist loadfile` queues files by test count (ROADMAP, test time
@@ -53,15 +55,16 @@ def _same(sct, ct, name):
         (ct.scale, ct.noise_deg, ct.slots, ct.limbs), name
 
 
-def _census_gathers(census: dict) -> dict:
+def _census_gathers(census: dict, boots: int = 0) -> dict:
     """The gathers a census implies: a digit gather per key switch that
-    decomposes (hoisted rotations share their decompose's), a ModDown
-    gather per key switch, a rescale gather per rescale."""
+    decomposes (hoisted rotations share their decompose's; conjugations
+    count as rotate_fused), a ModDown gather per key switch, a rescale
+    gather per rescale, and a raise gather per bootstrap."""
     ks = sum(census.get(op, 0) for op in ("mult_relin", "square_relin",
                                           "rotate_fused", "fast_rotate"))
     want = {"digit": ks - census.get("fast_rotate", 0)
             + census.get("decompose", 0), "moddown": ks,
-            "rescale": census.get("rescale", 0)}
+            "rescale": census.get("rescale", 0), "raise": boots}
     return {tag: n for tag, n in want.items() if n}
 
 
@@ -140,6 +143,28 @@ def _check_ops(geom, levels, mesh, rng):
     return ctx, sctx, sa
 
 
+def _check_boot_ops(ctx, sctx, a, mesh):
+    """The bootstrap's ops torch.equal to the single-device ones:
+    mod_raise from the base limbs and from 5 (rows on two slots), with one
+    "raise" gather each; conjugate and mult_monomial (X^(n/2), X^(3n/2),
+    X^5) at the full level and at 10 limbs, the conjugations with the two
+    gathers of a key switch each."""
+    P, sa = ctx.params, sctx.shard(a)
+    sctx.gen_conj_key()
+    mesh.clear_gathers()
+    for l0 in (P.base_limbs, 5):
+        _same(sctx.mod_raise(sctx.level_reduce(sa, l0)),
+              ctx.mod_raise(ctx.level_reduce(a, l0)), f"mod_raise@{l0}")
+    for l in (P.nq, 10):
+        x, sx = ctx.level_reduce(a, l), sctx.level_reduce(sa, l)
+        _same(sctx.conjugate(sx), ctx.conjugate(x), f"conjugate@{l}")
+        for power in (P.n // 2, 3 * P.n // 2, 5):
+            _same(sctx.mult_monomial(sx, power), ctx.mult_monomial(x, power),
+                  f"mult_monomial X^{power}@{l}")
+    assert {t: g["count"] for t, g in mesh.gathers.items()} == \
+        {"raise": 2, "digit": 2, "moddown": 2}
+
+
 def test_sharded_ops_match_single_device():
     mesh = make_mesh(devices=[CPU] * 8)
     rng = np.random.default_rng(11)
@@ -154,18 +179,16 @@ def test_sharded_ops_match_single_device():
     fresh = ctx.encrypt(np.ones(4), slots=4)
     assert torch.equal(shard_ciphertext(fresh, mesh).gather().data,
                        fresh.data)
-    for op in (lambda c: c.mod_raise(sa), lambda c: c.conjugate(sa),
-               lambda c: c.mult_monomial(sa, 3)):
-        with pytest.raises(NotImplementedError):
-            op(sctx)
+    _check_boot_ops(ctx, sctx, fresh, mesh)
     streamed = CkksContext(CkksConfig(rot_key_budget_mb=1, **SORT_GEOM),
                            device="cpu")
     with pytest.raises(NotImplementedError):
         shard_context(streamed, mesh)
     # comp 2, 23 q rows in blocks of 3: the rescale from 19 limbs drops
     # row 18 (slot 6) and then row 17 (slot 5)
-    _, sctx2, _ = _check_ops(COMP2_GEOM, (23, 19, 9), mesh, rng)
+    ctx2, sctx2, sa2 = _check_ops(COMP2_GEOM, (23, 19, 9), mesh, rng)
     assert sctx2.occupancy(19) == [3, 3, 3, 3, 3, 3, 1, 0]
+    _check_boot_ops(ctx2, sctx2, ctx2.encrypt(np.ones(4), slots=4), mesh)
 
 
 def test_sharded_step_and_construct_rank():
