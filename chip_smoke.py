@@ -33,7 +33,9 @@
    slot 3's [4, 29, n] ext digits (23 q + 6 special rows) and a [2, 1, n]
    rescale row on one slot; on the two bootstrapping chains step 10's
    fullest slot class, slot 0's ext digits ([8, 31, n]: 27 q + 4 special
-   rows of bitonic's chain; [3, 28, n]: 21 + 7 of k-way's).  K1/K2 must be
+   rows of bitonic's chain; [3, 28, n]: 21 + 7 of k-way's), and so on the
+   mehp24 N=512 chain for step 7b (c) ([8, 31, n]: 27 q + 4 special
+   rows).  K1/K2 must be
    bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
    and class its launch plan, its time (CUDA events over CUDA-graph
@@ -57,6 +59,18 @@
    bootstrap in every trial; it prints its trials, op census, plaintext
    encodes, NTT launches and bootstraps per trial, the peak device memory
    of each phase and the resident key set.
+4c. On step 4's hybrid1 N=128 context, right after its trials (its
+   chain: 95 q + 24 special rows, dnum 4): bench.micro_bench at the top
+   level (per-op ms of mult_relin, rescale, the hoisting precompute and
+   composed and hoisted rotation chains of 1 and 4 steps, CUDA events
+   around chained repetitions, differenced; the host sinc's ns per
+   evaluation), then bench.ntt_bench(17) (K1 on one [1, 64, 2^17] poly,
+   4 and 24 calls differenced), each with the launch counters reset
+   just before and read just after, printed on a line of its own with
+   the card's name and power limit.  Requires every value finite and >
+   0, rot_hoisted_1 within 1.1x of rot_composed_1 (at one step both do
+   the same work), launches of K1 and K2 in the table and of K1 in
+   ntt_bench.
 4b. Bootstrap phase, on the k-way N=16 chain (83 q primes, 28 special):
    one ciphertext at 128 slots, reduced to the raise point, is
    bootstrapped three times back to back, with a level_reduce to the
@@ -104,6 +118,17 @@
    the seconds in the key store's hook (synchronised), the K1 launches
    of the keygen apart from the sort's, the device memory per phase, the
    bytes allocated after the sort and the caches' bytes (cache_bytes).
+   (c) Right after (b), before its context is released: the same sort on
+   that context and input on shard_context(ctx, a virtual mesh of 4
+   slots on cuda:0) under the same budget (the key store keeps each
+   streamed key as its slot blocks), its sorter from bench.build_sorter,
+   the launch counters and the op census reset just before it.  Requires
+   torch.equal to (b)'s output, (b)'s census, the 0.01 gate, as many
+   regenerations as (b), the store's bytes within the budget at every
+   regeneration of (b) and (c) and at the end, no streamed key's blocks
+   kept by the mesh, and launches of K1 and K2; prints both runs'
+   seconds and their ratio, the regenerations, the seconds in the hook
+   and each peak.
 8. The limb-sharded key switch (sorting_fhe_tpu_torch/parallel/) on a
    virtual mesh of 4 slots on cuda:0, at ring 2^17 on a comp-1 chain
    whose rows divide the mesh (96 q + 24 special primes, dnum 4, scale
@@ -170,7 +195,9 @@
    the CLI's chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's,
    for the device keygen the [119, n] class with its K1 launches in 7b's
    sort, for the mesh a slot's [4, 30, n] class, for the sharded sort
-   slot 3's [4, 29, n] and for step 10's sorts slot 0's ext digits)),
+   slot 3's [4, 29, n] and for step 10's sorts and 7b (c) slot 0's ext
+   digits), the launches of step 4c's micro table and ntt_bench, and
+   ntt_bench's limb NTTs per second under K1),
    the card's name and power limit, and as the last line {"ok": true,
    "device": {...}}.  Any failed check
    raises, so the script exits non-zero and prints no result.
@@ -238,6 +265,18 @@ STREAM_PATH = "mehp24 N=512 streamed"
 STREAM_KEYGEN = "mehp24 N=512 device keygen"
 STREAM_ALGO, STREAM_N, STREAM_BUDGET_MB = "mehp24", 512, 5120
 STREAM_ROTS, STREAM_ROT_GATE = (1, 32640, 65280), 1e-5
+# step 7b (c): 7b's streamed sort, right after it, on its context and
+# input, on the row-sharded evaluator over 4 virtual slots (105 q + 14
+# special rows in blocks of 27/27/27/24 and 4/4/4/2) under the same budget
+STREAM_MESH = "mesh mehp24 N=512 streamed"
+STREAM_MESH_SLOTS = 4
+# step 4c: the micro table and K1's throughput (bench.micro_bench at the
+# top level of the main path's chain, 95 q + 24 special rows, dnum 4, on
+# step 4's hybrid1 N=128 context; bench.ntt_bench on 64 limbs)
+MICRO_PATH = "micro hybrid1 N=128"
+MICRO_CHAIN = "hybrid1 N=128"
+NTT_PATH = "ntt_bench"
+MICRO_HOIST_SLACK = 1.1      # rot_hoisted_1 within 10% of rot_composed_1
 # step 8: the limb-sharded key switch (parallel/) on a chain whose q and
 # special rows divide the mesh.  The registry's comp-2 chains have an odd
 # nq = 3 + 2 * depth, so comp 1, as the JAX package's multichip dryrun
@@ -439,8 +478,15 @@ def _chain_classes(P, label: str) -> list:
                 (f"[2, {nq}, n] mod-raise fwd", list(range(nq)), (2,)),
                 (f"[{digits}, {len(ext)}, n] slot 0 ext digits", ext,
                  (digits,))]
-    if label == STREAM_PATH:     # the device keygen's NTTs: every row
-        return [big, (f"[{LP}, n] keygen", list(range(LP)), ())]
+    if label == STREAM_PATH:     # the device keygen's NTTs: every row;
+        # 7b (c)'s slot 0, the fullest
+        from sorting_fhe_tpu_torch.parallel.mesh import row_blocks
+        (lo, hi), (slo, shi) = (row_blocks(c, STREAM_MESH_SLOTS)[0]
+                                for c in (nq, LP - nq))
+        ext = list(range(lo, hi)) + list(range(nq + slo, nq + shi))
+        return [big, (f"[{LP}, n] keygen", list(range(LP)), ()),
+                (f"[{digits}, {len(ext)}, n] slot 0 ext digits", ext,
+                 (digits,))]
     if label == MESH_PATH:       # one slot's blocks: slot 1's rows
         bq, bs = nq // MESH_SLOTS, (LP - nq) // MESH_SLOTS
         q, s = list(range(bq, 2 * bq)), list(range(nq + bs, nq + 2 * bs))
@@ -543,6 +589,7 @@ def _chain_configs() -> list:
     chain = dict(out)
     return out + [(CLI_PATH, _cli_config()), (EXP_PATH, chain[EXP_CHAIN]),
                   (STREAM_PATH, _stream_config()),
+                  (STREAM_MESH, _stream_config()),
                   (MESH_PATH, _mesh_config()),
                   (SHARD_PATH, chain[SHARD_CHAIN])] + [
                       (mesh, chain[label])
@@ -581,16 +628,20 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
                 largest[SHARD_PATH] = row
             if name.endswith("slot 0 ext digits"):
                 largest.update({p: row for p in paths
-                                if p in BOOT_MESH.values()})
+                                if p in BOOT_MESH.values()
+                                or p == STREAM_MESH})
         del P
         gc.collect()
         torch.cuda.empty_cache()
     return largest, table
 
 
-def kernel_records(largest: dict, table: list, launches: dict) -> list:
+def kernel_records(largest: dict, table: list, launches: dict,
+                   ntt_rate: float) -> list:
     """The JSON record of K1 and K2: time, bound and launches on MAIN at
-    top level, and the same for every path under "paths"."""
+    top level, and the same for every path under "paths"; the launches
+    of the micro table and of ntt_bench, and for K1 ntt_bench's limb
+    transforms per second (`ntt_rate`)."""
     recs = []
     for key, tag, label, line in (("ntt_fwd", "fwd", "ntt_fwd (K1)", 119),
                                   ("ntt_inv", "inv", "ntt_inv (K2)", 151)):
@@ -610,11 +661,15 @@ def kernel_records(largest: dict, table: list, launches: dict) -> list:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "prev_ms": largest[MAIN][tag]["prev_ms"],
             "shape": main["shape"],
+            "micro_launches": launches[MICRO_PATH][key],
+            "ntt_bench_launches": launches[NTT_PATH][key],
+            **({"ntt_bench_limb_transforms_per_s": ntt_rate}
+               if key == "ntt_fwd" else {}),
             "paths": [{"path": p, "launches": launches[p][key],
                        **timing(largest[p])}
                       for p in [p for p, *_ in PATHS] + [
                           BOOT_PHASE, CLI_PATH, EXP_PATH, STREAM_PATH,
-                          STREAM_KEYGEN, MESH_PATH, SHARD_PATH,
+                          STREAM_KEYGEN, STREAM_MESH, MESH_PATH, SHARD_PATH,
                           *BOOT_MESH.values()]]})
     return recs
 
@@ -675,6 +730,62 @@ def run_path(label, algo, N, trials, device, keep: dict | None = None
     if keep is not None:
         keep["rec"] = rec
     return launches, rec["device_mem"], rec["op_census"][-1]
+
+
+def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
+    """Step 4c, on step 4's hybrid1 N=128 context (`run`: sort_bench's
+    `keep`): bench.micro_bench at its top level (95 q rows) and then
+    bench.ntt_bench(RING_LOG), the launch counters reset just before each
+    and read just after.  Requires every value finite and > 0,
+    rot_hoisted_1 within MICRO_HOIST_SLACK of rot_composed_1 (at one step
+    the two do the same work), launches of K1 and K2 in the table and of
+    K1 in ntt_bench.  Prints each on a line of its own with the card's
+    name and power limit.  Returns both runs' launches and ntt_bench's
+    rate."""
+    from sorting_fhe_tpu_torch import bench
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+
+    def counts():
+        return {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    ctx = run["ctx"]
+    run.clear()
+    ctx._pt_cache.clear()      # the sort's plaintexts: the table needs none
+    ctx._pt_cache_bytes = 0
+    gc.collect()
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    micro = bench.micro_bench(ctx)
+    micro_s, micro_launches = time.perf_counter() - t0, counts()
+    print(f"[{MICRO_PATH}] " + json.dumps({
+        "card": card, "limbs": ctx.params.nq,
+        "special": ctx.params.num_special, "dnum": ctx.cfg.dnum,
+        "micro": micro, "launches": micro_launches, "s": micro_s}),
+        flush=True)
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda_ntt.reset_launch_counts()
+    t0 = time.perf_counter()
+    ntt = bench.ntt_bench(RING_LOG, device)
+    ntt_s, ntt_launches = time.perf_counter() - t0, counts()
+    print(f"[{NTT_PATH}] " + json.dumps({
+        "card": card, **ntt, "launches": ntt_launches, "s": ntt_s}),
+        flush=True)
+    bad = {k: v for k, v in {**micro, "ntt": ntt["value"]}.items()
+           if not (np.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"{MICRO_PATH}: not finite and > 0: {bad}")
+    if not micro["rot_hoisted_1_ms"] <= \
+            micro["rot_composed_1_ms"] * MICRO_HOIST_SLACK:
+        raise AssertionError(f"{MICRO_PATH}: rot_hoisted_1 "
+                             f"{micro['rot_hoisted_1_ms']} ms over "
+                             f"{MICRO_HOIST_SLACK} x rot_composed_1 "
+                             f"{micro['rot_composed_1_ms']} ms")
+    if min(micro_launches.values()) <= 0 or ntt_launches["ntt_fwd"] <= 0:
+        raise AssertionError(f"{MICRO_PATH}: launches {micro_launches}, "
+                             f"ntt_bench {ntt_launches}")
+    return micro_launches, ntt_launches, ntt["value"]
 
 
 def _storages(obj, device, skip: set, depth: int = 0) -> dict:
@@ -1100,25 +1211,39 @@ def keygen_phase(device):
                              "launched K1")
 
 
-def stream_phase(device) -> tuple[dict, dict]:
+def stream_phase(device) -> tuple[dict, dict, dict]:
     """Step 7b (b): experiments.main for mehp24 N=512 (one trial, a fresh
     context) with SORTING_FHE_KEY_BUDGET_MB=STREAM_BUDGET_MB, with the
     launch counters reset just before and read just after, the context's
     key-store hook timed (device synchronised) and its caches' bytes read
-    when the trial releases them.  Requires the 0.01 gate, HEStd-128,
-    launches of K1 and K2 in the sort, more regenerations than keys and
-    the keys' resident bytes within the budget.  Returns the NTT
-    launches of the run and the K1 launches of its keygen."""
+    when the trial ends; then (c), stream_mesh_phase on that context and
+    input, before the context is released.  Requires the 0.01 gate,
+    HEStd-128, launches of K1 and K2 in the sort, more regenerations than
+    keys and the keys' resident bytes within the budget.  Returns the
+    NTT launches of the run, the K1 launches of its keygen and (c)'s."""
     from sorting_fhe_tpu_torch import experiments
     from sorting_fhe_tpu_torch.bench import GATE, KEY_BUDGET_ENV
     from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     gc.collect()
     torch.cuda.empty_cache()
-    hook = {"calls": 0, "s": 0.0, "ntt_fwd": 0}
+    budget = STREAM_BUDGET_MB << 20
+    hook = {"calls": 0, "s": 0.0, "ntt_fwd": 0, "resident_max": 0}
+    kept = {}
     regen, release = CkksContext._regen_rot_key, experiments._release
+    build_sorter = experiments.build_sorter
 
     def timed_regen(ctx, kk):
+        # what the store holds when it asks for a key: within the budget,
+        # the key in flight apart; a mesh's blocks only in the store
+        held = ctx.rot_keys.resident_bytes
+        hook["resident_max"] = max(hook["resident_max"], held)
+        tables = getattr(ctx, "mesh_tables", None)
+        if held > budget or (tables is not None and set(tables.keys) - {
+                "relin", "conj"}):
+            raise AssertionError(f"{STREAM_PATH}: at a regeneration the "
+                                 f"store holds {held} B (budget {budget})"
+                                 " or the mesh keeps a streamed key")
         n0 = cuda_ntt.ntt_fwd.launches
         key, dt = _timed(regen, ctx, kk)
         hook["calls"] += 1
@@ -1126,15 +1251,27 @@ def stream_phase(device) -> tuple[dict, dict]:
         hook["ntt_fwd"] += cuda_ntt.ntt_fwd.launches - n0
         return key
 
-    def read_then_release(ctx):
+    def kept_sorter(ctx, algo, N, p, **kw):
+        # the trial's sort, keeping its input and output for (c)
+        sort_fn, slots, mode = build_sorter(ctx, algo, N, p, **kw)
+
+        def sort(ct, sign):
+            ctx.op_counts.clear()
+            out = sort_fn(ct, sign)
+            kept.update(ctx=ctx, ct=ct, out=out, sign=sign, params=p,
+                        census=dict(ctx.op_counts))
+            return out
+        return sort, slots, mode
+
+    def read_caches(ctx):
         hook["caches"] = cache_bytes(ctx, device)
-        release(ctx)
 
     tmp = tempfile.mkdtemp(prefix="experiments_stream_")
     env = os.environ.get(KEY_BUDGET_ENV)
     os.environ[KEY_BUDGET_ENV] = str(STREAM_BUDGET_MB)
     CkksContext._regen_rot_key = timed_regen
-    experiments._release = read_then_release
+    experiments._release = read_caches
+    experiments.build_sorter = kept_sorter
     try:
         cuda_ntt.reset_launch_counts()
         (trials,) = experiments.main([
@@ -1143,18 +1280,24 @@ def stream_phase(device) -> tuple[dict, dict]:
             *(["--cpu"] if device.type == "cpu" else [])])
         launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
                     "ntt_inv": cuda_ntt.ntt_inv.launches}
+        (t,) = trials
+        single = dict(hook)
+        hook.update(calls=0, s=0.0, ntt_fwd=0, resident_max=0)
+        mesh_launches = stream_mesh_phase(device, kept, t, single, hook)
     finally:
         CkksContext._regen_rot_key = regen
         experiments._release = release
+        experiments.build_sorter = build_sorter
+        if "ctx" in kept:
+            release(kept["ctx"])
+        kept.clear()
         if env is None:
             del os.environ[KEY_BUDGET_ENV]
         else:
             os.environ[KEY_BUDGET_ENV] = env
         shutil.rmtree(tmp, ignore_errors=True)
-    (t,) = trials
     gb = 2 ** 30 / 1e9           # the monitor's GiB -> GB
-    budget = STREAM_BUDGET_MB << 20
-    sort_k1 = t["ntt_launches"]["ntt_fwd"] - hook["ntt_fwd"]
+    sort_k1 = t["ntt_launches"]["ntt_fwd"] - single["ntt_fwd"]
     print(f"[{STREAM_PATH}] " + json.dumps({
         "setup_s": t["setup_s"], "exec_ms": t["exec_ms"],
         "max_err": t["max_err"],
@@ -1162,17 +1305,18 @@ def stream_phase(device) -> tuple[dict, dict]:
         "security_logqp": t["logqp"], "security_ok": t["sec_ok"],
         "mults": t["mults"], "rots": t["rots"], "rot_keys": t["rot_keys"],
         "key_budget_mb": t["key_budget_mb"], "regens": t["key_regens"],
-        "regen_hook_calls": hook["calls"], "regen_hook_s": hook["s"],
-        "keygen_ntt_fwd": hook["ntt_fwd"],
+        "regen_hook_calls": single["calls"], "regen_hook_s": single["s"],
+        "keygen_ntt_fwd": single["ntt_fwd"],
         "sort_ntt_launches": t["ntt_launches"],
         "sort_ntt_fwd_without_keygen": sort_k1,
         "resident_key_gb": t["rot_keys_resident_bytes"] / 1e9,
+        "resident_at_regen_max_gb": single["resident_max"] / 1e9,
         "budget_gb": budget / 1e9,
         "device_gb": {k: t[k] * gb for k in t if k.startswith("device_")},
         "allocated_after_sort_gb": t.get("device_end_gb", 0) * gb,
         "run_launches": launches}), flush=True)
-    print(f"[{STREAM_PATH}] caches at release: "
-          + json.dumps(hook["caches"]), flush=True)
+    print(f"[{STREAM_PATH}] caches at the trial's end: "
+          + json.dumps(single["caches"]), flush=True)
     if not t["max_err"] < GATE:
         raise AssertionError(f"{STREAM_PATH}: max_err {t['max_err']} not "
                              f"below {GATE}")
@@ -1188,7 +1332,100 @@ def stream_phase(device) -> tuple[dict, dict]:
                              f"regenerations for {t['rot_keys']} keys")
     if not t["rot_keys_resident_bytes"] <= budget:
         raise AssertionError(f"{STREAM_PATH}: resident keys over budget")
-    return launches, {"ntt_fwd": hook["ntt_fwd"], "ntt_inv": 0}
+    return launches, {"ntt_fwd": single["ntt_fwd"], "ntt_inv": 0}, \
+        mesh_launches
+
+
+def stream_mesh_phase(device, run: dict, trial: dict, single: dict,
+                      hook: dict) -> dict:
+    """Step 7b (c): 7b's streamed sort (`run`: its context, input, output,
+    sign, params and census; `trial`: its experiments record; `single`:
+    its key-store hook's totals) on shard_context(ctx, a virtual mesh of
+    STREAM_MESH_SLOTS slots on `device`) under the same budget, its
+    sorter from bench.build_sorter, the launch counters, the op census
+    and the hook's totals (`hook`) reset just before it and read just
+    after.  Requires torch.equal to the single-device output, the same
+    census, the 0.01 gate, as many regenerations as the single-device
+    sort, the store's bytes within the budget at every regeneration and
+    at the end, no streamed key in the mesh's own blocks, and launches
+    of K1 and K2.  Prints both runs' seconds and their ratio, the
+    regenerations and the seconds in the hook, and each peak.  Returns
+    the NTT launches of the sharded sort."""
+    from sorting_fhe_tpu_torch import bench
+    from sorting_fhe_tpu_torch.core import cuda_ntt
+    from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
+    from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
+    from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
+    ctx, ct, out, census = run["ctx"], run["ct"], run["out"], run["census"]
+    store = ctx.rot_keys
+    budget = STREAM_BUDGET_MB << 20
+    # the trial's input (experiments.run_trial: seed 100 for trial 0)
+    v = vector_with_min_diff(STREAM_N, 0, 1, 1.0 / STREAM_N,
+                             np.random.default_rng(100))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    mesh = make_mesh(devices=[device] * STREAM_MESH_SLOTS)
+    sctx = shard_context(ctx, mesh)
+    sort_fn, _, _ = bench.build_sorter(sctx, STREAM_ALGO, STREAM_N,
+                                       run["params"])
+    sct = sctx.shard(ct)
+    regens0 = store.regen_count
+    sctx.sync()
+    cuda_ntt.reset_launch_counts()
+    ctx.op_counts.clear()
+    sout, secs = _timed(sort_fn, sct, run["sign"])
+    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    regens = store.regen_count - regens0
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    equal = torch.equal(sout.gather(device).data, out.data)
+    err = float(np.abs(sctx.decrypt(sout)[:STREAM_N] - np.sort(v)).max())
+    streamed_blocks = sorted(str(t) for t in sctx.mesh_tables.keys
+                             if t not in ("relin", "conj"))
+    single_s = trial["exec_ms"] / 1e3
+    gb = 2 ** 30 / 1e9
+    print(f"[{STREAM_MESH}] " + json.dumps({
+        "slots": mesh.size, "devices": [str(d) for d in mesh.devices],
+        "blocks": [[hi - lo for lo, hi in sctx.mesh_tables.q_blocks],
+                   [hi - lo for lo, hi in sctx.mesh_tables.sp_blocks]],
+        "single_s": single_s, "mesh_s": secs, "ratio": secs / single_s,
+        "bit_equal": equal, "census_equal": dict(ctx.op_counts) == census,
+        "max_err": err, "log2_err": float(np.log2(max(err, 1e-300))),
+        "regens": [trial["key_regens"], regens],
+        "regen_hook_s": [single["s"], hook["s"]],
+        "regen_hook_calls": [single["calls"], hook["calls"]],
+        "keygen_ntt_fwd": hook["ntt_fwd"],
+        "resident_at_regen_max_gb": [single["resident_max"] / 1e9,
+                                     hook["resident_max"] / 1e9],
+        "resident_key_gb": store.resident_bytes / 1e9,
+        "budget_gb": budget / 1e9, "streamed_blocks_in_mesh":
+        streamed_blocks,
+        "peak_gb": [trial.get("device_peak_gb", 0) * gb, peak],
+        "gathers": {t: dict(g) for t, g in mesh.gathers.items()},
+        "launches": launches}), flush=True)
+    if not equal:
+        raise AssertionError(f"{STREAM_MESH}: sharded sort != single-device"
+                             " sort")
+    if dict(ctx.op_counts) != census:
+        raise AssertionError(f"{STREAM_MESH}: census {dict(ctx.op_counts)}"
+                             f" != {census}")
+    if not err < bench.GATE:
+        raise AssertionError(f"{STREAM_MESH}: max_err {err} not below "
+                             f"{bench.GATE}")
+    if regens != trial["key_regens"] or hook["calls"] != regens:
+        raise AssertionError(f"{STREAM_MESH}: {regens} regenerations "
+                             f"({hook['calls']} through the hook), "
+                             f"{trial['key_regens']} on one device")
+    if not store.resident_bytes <= budget or streamed_blocks:
+        raise AssertionError(f"{STREAM_MESH}: {store.resident_bytes} B in "
+                             f"the store (budget {budget}), streamed "
+                             f"blocks kept by the mesh: {streamed_blocks}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{STREAM_MESH}: the sharded sort launched no"
+                             f" kernel: {launches}")
+    del sctx, sout, sct
+    return launches
 
 
 def _best_ms(fn, reps: int = MESH_REPS) -> float:
@@ -1698,12 +1935,18 @@ def main() -> int:
     # 4. the sorts, counting launches path by path
     launches, mems, census = {}, {}, {}
     for label, algo, N, trials in PATHS:
-        kept = {} if label in BOOT_MESH else None
+        kept = {} if label in BOOT_MESH or label == MICRO_CHAIN else None
         launches[label], mems[label], census[label] = run_path(
             label, algo, N, trials, device, kept)
         print(f"[time] {label} done at {time.perf_counter() - t_start:.1f}s",
               flush=True)
-        if kept is not None:
+        if label == MICRO_CHAIN:
+            # 4c. the per-op table on its context, and K1's throughput
+            launches[MICRO_PATH], launches[NTT_PATH], ntt_rate = \
+                micro_phase(device, card, kept)
+            print(f"[time] {MICRO_PATH} done at "
+                  f"{time.perf_counter() - t_start:.1f}s", flush=True)
+        elif kept is not None:
             # 10. the same sort on the row-sharded evaluator, on its
             # context, input and output
             name = BOOT_MESH[label]
@@ -1726,7 +1969,8 @@ def main() -> int:
 
     # 7b. key streaming with device keygen on the mehp24 N=512 chain
     keygen_phase(device)
-    launches[STREAM_PATH], launches[STREAM_KEYGEN] = stream_phase(device)
+    (launches[STREAM_PATH], launches[STREAM_KEYGEN],
+     launches[STREAM_MESH]) = stream_phase(device)
     print(f"[time] {STREAM_PATH} done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
@@ -1741,8 +1985,8 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # 11. results
-    print(json.dumps({"kernels": kernel_records(largest, table, launches)}),
-          flush=True)
+    print(json.dumps({"kernels": kernel_records(largest, table, launches,
+                                                ntt_rate)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

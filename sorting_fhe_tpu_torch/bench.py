@@ -23,7 +23,11 @@ prints one JSON record on stdout; it needs a CUDA device (on any other
 device it exits non-zero: a CPU time is not a result of this benchmark).
 With BENCH_PROFILE=<dir> the last trial runs under torch.profiler: the
 record gains a device-time breakdown by kernel and the chrome trace goes
-to <dir>.
+to <dir>.  The JAX harness's switches, after the sort: BENCH_MICRO=1
+adds the per-op table at the context's top level (`micro_bench`) to the
+record as "micro"; BENCH_NTT=1 adds K1's throughput on 64 limbs
+(`ntt_bench`) as "ntt"; BENCH_SORT=0 runs only that and prints its
+record.  A failure in either raises: nothing is logged and passed over.
 """
 
 from __future__ import annotations
@@ -155,6 +159,156 @@ def build_sorter(ctx, algo: str, N: int, p, minimal_keys: bool = False,
 
 def log(msg):
     print(msg, file=sys.stderr, flush=True)
+
+
+def _elapsed_ms(fn, device: torch.device) -> float:
+    """Milliseconds of fn(): CUDA events around it on the card (what the
+    device's stream takes, host launch gaps included), the host clock on
+    any other device."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    with torch.cuda.device(device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+def _marginal_ms(body, data, device: torch.device, lo: int, hi: int
+                 ) -> tuple[float, dict]:
+    """Milliseconds per call of `body` chained on `data` (a = body(a)),
+    as the JAX harness differences two fori_loop repetition counts:
+    (t(hi) - t(lo)) / (hi - lo), so that a fixed cost per run cancels.
+    Each count runs once to warm up and once timed.  Returns that and
+    the timed runs' milliseconds by count."""
+    def run():
+        a = data
+        for _ in range(reps):
+            a = body(a)
+    for reps in (lo, hi):
+        run()
+    ts = {}
+    for reps in (lo, hi):
+        ts[reps] = _elapsed_ms(run, device)
+    return (ts[hi] - ts[lo]) / (hi - lo), ts
+
+
+def ntt_bench(ring_log: int, device="cuda") -> dict:
+    """K1's throughput at ring 2^ring_log (bench.py:102-149): 64 30-bit
+    primes, one [1, 64, n] poly of residues from default_rng(0), rows
+    0..63, through cuda_ntt.ntt_fwd (the hand-written kernel on the card,
+    its plain version only on a CPU tensor).  Seconds per call from 4 and
+    24 back-to-back calls, differenced (_marginal_ms)."""
+    from .core import nt
+    from .core.cuda_ntt import ntt_fwd
+    from .core.device import resolve_device
+    from .core.interop import residues_to_torch
+    from .core.ntt import NttContext
+
+    device = resolve_device(device)
+    n, L = 1 << ring_log, 64
+    # 30-bit primes: dense enough (= 1 mod 2n) at every ring up to 2^17
+    primes = nt.find_ntt_primes(30, L, n)
+    tabs = NttContext(primes, n, device)
+    rng = np.random.default_rng(0)
+    x = residues_to_torch(np.stack([
+        rng.integers(0, p, size=n, dtype=np.uint64).astype(np.uint32)
+        for p in primes]).reshape(1, L, n), device)
+    rows = torch.arange(L, dtype=torch.int32, device=device)
+    k_lo, k_hi = 4, 24
+    t0 = time.time()
+    ms, ts = _marginal_ms(lambda y: ntt_fwd(y, tabs, rows), x, device,
+                          k_lo, k_hi)
+    rate = L / (ms / 1e3)
+    log(f"[ntt] {rate:,.0f} limb-NTTs/s at n=2^{ring_log} "
+        f"({ms:.4f} ms per {L}-limb poly; T{k_lo}={ts[k_lo]:.3f}ms "
+        f"T{k_hi}={ts[k_hi]:.3f}ms; {time.time() - t0:.1f}s in all)")
+    return {"metric": f"ntt_limb_transforms_per_s_ring2e{ring_log}",
+            "value": round(rate, 1), "unit": "1/s", "vs_baseline": None}
+
+
+def micro_bodies(ctx, l: int, relin_key, rot_key, perm) -> dict:
+    """The micro table's op bodies at limb count l (bench.py:185-219), by
+    name: each maps [2, l, n] int32 data to data of that shape, so that
+    it chains.  mult_relin squares with the relinearisation key; rescale
+    drops `comp` rows and pads them back with zeros; hoist_precompute
+    writes the first digit's q rows of decompose(a[1]) into a[0];
+    rot_composed_m / rot_hoisted_m are m fast rotations with `rot_key`
+    and `perm`, after a decompose each or after one."""
+    from .core.ckks import (_kj_decompose, _kj_fast_rotate, _kj_mult_relin,
+                            _kj_rescale)
+    T, comp = ctx.tables(l), ctx.params.comp
+    steps = ctx._rescale_consts(l)
+    pad = torch.zeros((2, comp, ctx.n), dtype=torch.int32, device=ctx.device)
+
+    def rot_chain(m: int, hoisted: bool):
+        def body(a):
+            pre = _kj_decompose(a[1], T)
+            for i in range(m):
+                if i and not hoisted:
+                    pre = _kj_decompose(a[1], T)
+                a = _kj_fast_rotate(a, pre, rot_key, perm, T)
+            return a
+        return body
+
+    bodies = {
+        "mult_relin": lambda a: _kj_mult_relin(a, a, relin_key, T),
+        "rescale": lambda a: torch.cat(
+            [_kj_rescale(a, steps, T)[:, :l - comp], pad], dim=1),
+        "hoist_precompute": lambda a: torch.stack(
+            (_kj_decompose(a[1], T)[0, :l], a[1]))}
+    for m in (1, 4):
+        bodies[f"rot_composed_{m}"] = rot_chain(m, False)
+        bodies[f"rot_hoisted_{m}"] = rot_chain(m, True)
+    return bodies
+
+
+def micro_bench(ctx, limbs: int | None = None) -> dict:
+    """Per-op milliseconds at the context's top level (bench.py:152-234):
+    mult_relin, rescale and the hoisting precompute (repetitions 2 and 8),
+    composed against hoisted rotation chains of 1 and 4 steps (1 and 3;
+    the reference's RotationBenchmark.cpp:8-53), each the op as the port
+    issues it (_marginal_ms: CUDA events on the card, host launch gaps
+    included; the host clock on the CPU), and the host's ns per
+    evaluation of Sinc(128)'s scaled and doubled sinc
+    (SincBenchmark.cpp:15-35).  The data is [2, l, n] residues drawn per
+    prime from default_rng(0); rotation key 1 is the key store's (made
+    under a budget).  Returns the JAX function's 8 keys, rounded to 3
+    places."""
+    from .ops.comparison import Sinc
+
+    P = ctx.params
+    l = limbs or P.nq
+    ctx.gen_rotation_keys([1])
+    rk, perm = ctx._key(1), ctx._perm(1)
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(np.ascontiguousarray(np.stack([
+        rng.integers(0, P.q[i], size=(2, ctx.n), dtype=np.int64
+                     ).astype(np.uint32) for i in range(l)], axis=1)
+    ).view(np.int32)).to(ctx.device)
+    bodies = micro_bodies(ctx, l, ctx.relin_key, rk, perm)
+    out = {}
+    for name, body in bodies.items():
+        lo, hi = (1, 3) if name.startswith("rot_") else (2, 8)
+        out[f"{name}_ms"] = _marginal_ms(body, data, ctx.device, lo, hi)[0]
+
+    sk = Sinc(128)
+    xs = np.linspace(-1, 1, 1 << 12)
+    t0 = time.perf_counter()
+    for x in xs:
+        sk.scaled_sinc(x)
+        sk.doubled_sinc(x)
+    out["sinc_host_ns_per_eval"] = \
+        (time.perf_counter() - t0) / (2 * len(xs)) * 1e9
+    log(f"[micro] limbs={l}: " + "  ".join(
+        f"{k}={v:.2f}" for k, v in out.items()))
+    return {k: round(v, 3) for k, v in out.items()}
 
 
 def _sync(device: torch.device):
@@ -397,6 +551,11 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                       if device.type == "cuda" else str(device))}
     if prof_summary is not None:
         rec["profile"] = prof_summary
+    if os.environ.get("BENCH_MICRO", "0") == "1":
+        # after the headline number, as the JAX harness runs it
+        t0 = time.time()
+        rec["micro"] = micro_bench(ctx)
+        log(f"[micro] table {time.time() - t0:.1f}s")
     if keep is not None:
         keep.update(ctx=ctx, ct=ct, values=v, out=first, sign=cfg_sign,
                     params=p, slots=slots)
@@ -412,9 +571,14 @@ def main(argv: list[str]) -> int:
     ring_log = int(argv[2]) if len(argv) > 2 else 17
     trials = int(argv[3]) if len(argv) > 3 else 2
     k = int(argv[4]) if len(argv) > 4 else 2
-    print(json.dumps(sort_bench(algo, N, ring_log, trials,
-                                profile_dir=os.environ.get("BENCH_PROFILE"),
-                                k=k)), flush=True)
+    rec = None
+    if os.environ.get("BENCH_SORT", "1") != "0":
+        rec = sort_bench(algo, N, ring_log, trials,
+                         profile_dir=os.environ.get("BENCH_PROFILE"), k=k)
+    if os.environ.get("BENCH_NTT", "0") == "1" or rec is None:
+        ntt = ntt_bench(ring_log)
+        rec = ntt if rec is None else {**rec, "ntt": ntt}
+    print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -574,10 +574,14 @@ class CkksContext:
                 g = encoding.galois_element_for_rotation(self.n, kk)
                 self.rot_keys[kk] = self.keygen.gen_rotation_key(g)
 
-    def _regen_rot_key(self, kk: int) -> torch.Tensor:
-        """The key store's hook: the device keygen's key for rotation kk."""
+    def _regen_rot_key(self, kk: int):
+        """The key store's hook: the device keygen's key for rotation kk;
+        on a context placed on a mesh (parallel/mesh.shard_context_tables),
+        that key's slot blocks, which the store then keeps in its place."""
         g = encoding.galois_element_for_rotation(self.n, kk)
-        return self.keygen.gen_rotation_key_dev(g)
+        key = self.keygen.gen_rotation_key_dev(g)
+        tables = getattr(self, "mesh_tables", None)
+        return key if tables is None else tables.split_key(key)
 
     def _perm(self, k, device=None) -> torch.Tensor:
         """int64 gather index of the Galois automorphism for rotation k
@@ -652,7 +656,17 @@ class CkksContext:
                              self.tables(self.params.nq))
 
     def _key(self, tag) -> torch.Tensor:
-        """The key-switching key of tag: "relin", "conj" or a rotation."""
+        """The key-switching key of tag: "relin", "conj" or a rotation,
+        whole (joined from a mesh's slot blocks where the store keeps
+        those)."""
+        key = self._key_entry(tag)
+        return key if isinstance(key, torch.Tensor) else \
+            key.whole(self.device)
+
+    def _key_entry(self, tag):
+        """The key of tag as the context keeps it: a tensor, or for a
+        streamed rotation of a context placed on a mesh, its slot blocks
+        (parallel/mesh.KeyBlocks)."""
         if tag == "relin":
             return self.relin_key
         return self.conj_key if tag == "conj" else self.rot_keys[tag]

@@ -12,8 +12,11 @@ tensor: the context's ops take a key as an argument for one call and keep
 no reference to it.
 
 Iterating the store's values (`items()`, `values()`) materialises every
-registered key, one after another; `len()`, `in` and `resident_bytes`
-make none.
+registered key, one after another; `len()`, `in`, `pinned()` and
+`resident_bytes` make none.  An entry is anything with `nbytes`: on a
+context placed on a mesh (parallel/mesh.py) the regeneration hook gives
+a key's slot blocks, whose `nbytes` is the whole key's, so the store
+keeps only the blocks and evicts in the same order as on one device.
 
 Regeneration uses the client-side KeyGenerator, which this process also
 holds, as in the reference's experimental setup (the sorting process
@@ -123,6 +126,18 @@ class KeyStore(MutableMapping):
         arr = self._lru.pop(int(k), None)
         if arr is not None:
             self._bytes -= arr.nbytes
+
+    def evict_all(self):
+        """Drop every cached (non-pinned) key; each stays registered."""
+        self._lru.clear()
+        self._bytes = 0
+
+    def is_pinned(self, k: int) -> bool:
+        return int(k) in self._pinned
+
+    def pinned(self) -> list:
+        """The pinned keys' indices (makes no key)."""
+        return list(self._pinned)
 
     @property
     def resident_bytes(self) -> int:

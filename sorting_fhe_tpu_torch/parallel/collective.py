@@ -249,8 +249,8 @@ class ShardedKeyswitch:
         for x, y, S in zip(a.blocks, b.blocks, slots):
             with _on(S.device):
                 d.append(_k_mult3(x, y, S.q_p, S.q_rinv))
-        dd = self._keyswitch([x[2] for x in d], self.tables.key_blocks(
-            "relin", self.ctx.relin_key), [None] * self.D)
+        dd = self._keyswitch([x[2] for x in d], self.tables.blocks("relin"),
+                             [None] * self.D)
         blocks = Blocks()
         for x, y, S in zip(d, dd, slots):
             with _on(S.device):
@@ -269,8 +269,7 @@ class ShardedKeyswitch:
         if kk not in ctx.rot_keys:
             raise KeyError(f"missing rotation key {k}")
         slots = self.tables.slots
-        keys = self.tables.keys.get(kk) or self.tables.key_blocks(
-            kk, ctx.rot_keys[kk])
+        keys = self.tables.blocks(kk)
         perms = [ctx._perm(kk, S.device) for S in slots]
         dd = self._keyswitch([c[1] for c in ct.blocks], keys, perms)
         blocks = Blocks()

@@ -38,10 +38,14 @@ the level and scale bookkeeping is CkksContext's own.  The steps:
   by each slot from the host rows of its block, into the sharded
   context's own plaintext cache (the same byte cap).
 
+Under a rotation-key budget the key store, shared with ctx, keeps each
+streamed key as its slot blocks (parallel/mesh.MeshTables): the hook
+makes the whole key on ctx's device and splits it, the store counts the
+blocks' bytes, which are the key's, and evicts them as it would the key,
+so the regenerations and the outputs are those of ctx on one device.
+
 Each slot's launches run under torch.cuda.device(slot), which distinct
-cards need.  Not in this slice, and raising NotImplementedError rather
-than gathering to one device: a context under a rotation-key budget
-(ROADMAP queue 1, the remaining mesh work).
+cards need.
 """
 
 from __future__ import annotations
@@ -60,7 +64,6 @@ from .mesh import (Blocks, Mesh, ShardedCiphertext, all_gather,
 
 I32 = torch.int32
 I64 = torch.int64
-TODO = "on a mesh: not ported yet (ROADMAP queue 1, the remaining mesh work)"
 
 
 def _shared(name: str):
@@ -84,8 +87,6 @@ class ShardedContext(CkksContext):
     conj_key = _shared("conj_key")
 
     def __init__(self, ctx: CkksContext, mesh: Mesh):
-        if ctx._key_streaming:
-            raise NotImplementedError(f"the key store's budget path {TODO}")
         shared = {k: v for k, v in vars(ctx).items()
                   if not isinstance(getattr(type(self), k, None), property)}
         self.__dict__.update(shared)
@@ -148,8 +149,7 @@ class ShardedContext(CkksContext):
 
     def _keyswitch(self, exts, tag, l: int):
         slots = self.mesh_tables.level(l)
-        keys = self.mesh_tables.keys.get(tag) or \
-            self.mesh_tables.key_blocks(tag, self._key(tag))
+        keys = self.mesh_tables.blocks(tag)
         perms = [None if tag == "relin" else self._perm(tag, S.device)
                  for S in slots]
         return keyswitch(exts, keys, perms, slots, self.mesh)
@@ -228,17 +228,18 @@ class ShardedContext(CkksContext):
 
     # ---------------- keys ----------------
     def gen_rotation_keys(self, indices: list[int]):
-        """Make the keys on the wrapped context and place their blocks."""
+        """Make the keys on the wrapped context and place their blocks
+        (under a budget the keys are only registered: the key store makes
+        each one's blocks on first use)."""
         self.base.gen_rotation_keys(indices)
-        for kk in list(self.rot_keys):
-            if kk not in self.mesh_tables.keys:
-                self.mesh_tables.key_blocks(kk, self.rot_keys[kk])
+        for kk in self.rot_keys.pinned():
+            self.mesh_tables.blocks(kk)
 
     def gen_conj_key(self):
         """Make the conjugation key on the wrapped context and place its
         blocks."""
         self.base.gen_conj_key()
-        self.mesh_tables.key_blocks("conj", self.conj_key)
+        self.mesh_tables.blocks("conj")
 
 
 def _rescale_block(x: torch.Tensor, coeffs: torch.Tensor, F, steps

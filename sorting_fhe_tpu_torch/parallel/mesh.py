@@ -273,12 +273,43 @@ class SlotTables:
                          dim=2)
 
 
+class KeyBlocks(Blocks):
+    """A [dnum, 2, nq + ksp, n] key as one [dnum, 2, bq + bs, n] block per
+    slot of `mesh` (its q rows, then its special rows; `q_rows` gives each
+    slot's bq).  Every row of the key lies in one block, so `nbytes` is
+    the whole key's: the key store counts a streamed key's blocks as it
+    counts the key on one device."""
+
+    def __init__(self, blocks, mesh: Mesh, q_rows: list):
+        super().__init__(blocks)
+        self.mesh, self.q_rows = mesh, q_rows
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.nbytes for b in self)
+
+    def whole(self, device=None) -> torch.Tensor:
+        """The key with its rows in chain order, on `device` (the first
+        slot's by default)."""
+        device = self[0].device if device is None else device
+        return torch.cat([b[:, :, :r].to(device)
+                          for b, r in zip(self, self.q_rows)]
+                         + [b[:, :, r:].to(device)
+                            for b, r in zip(self, self.q_rows)], dim=2)
+
+
 class MeshTables:
     """Every slot's SlotTables, made per limb count on first use and kept
-    (`level(l)`; `slots` is the full level's), and the key blocks: a
-    [dnum, 2, nq + ksp, n] key as one [dnum, 2, bq + bs, n] block per slot
-    (its q block, then its special block), taken when the key is first
-    placed.  Blocks follow row_blocks(nq) and row_blocks(ksp)."""
+    (`level(l)`; `slots` is the full level's), and the keys' slot blocks
+    (KeyBlocks), which follow row_blocks(nq) and row_blocks(ksp).
+
+    `keys` keeps the blocks of the relinearisation, conjugation and
+    pinned rotation keys, placed on first use.  A streamed rotation key
+    (the key store's budget path) is never kept here: the store's hook
+    (CkksContext._regen_rot_key) splits each key it makes into this
+    mesh's blocks, the store keeps those in place of the whole key, and
+    they leave with its eviction; the cached whole keys of the store are
+    dropped here, as they are not in that form."""
 
     def __init__(self, ctx, mesh: Mesh):
         P = ctx.params
@@ -293,9 +324,10 @@ class MeshTables:
         self.ntts = [ntts[d] for d in mesh.devices]
         self._levels: dict = {}
         self.keys: dict = {}
-        self.key_blocks("relin", ctx.relin_key)
-        for kk in list(ctx.rot_keys):
-            self.key_blocks(kk, ctx.rot_keys[kk])
+        self.blocks("relin")
+        ctx.rot_keys.evict_all()
+        for kk in ctx.rot_keys.pinned():
+            self.blocks(kk)
 
     def level(self, l: int) -> list:
         """The slots' SlotTables of limb count l."""
@@ -314,18 +346,34 @@ class MeshTables:
     def slots(self) -> list:
         return self.level(self.q_blocks[-1][1])
 
-    def key_blocks(self, tag, key: torch.Tensor) -> list:
-        """The slots' blocks of the key placed under `tag` (a rotation
-        index or "relin"), placing `key` on first use."""
-        if tag not in self.keys:
-            nq = self.q_blocks[-1][1]
-            self.keys[tag] = [
-                key.index_select(2, torch.cat([
-                    torch.arange(lo, hi), nq + torch.arange(slo, shi)]).to(
-                        key.device)).to(d)
-                for (lo, hi), (slo, shi), d in zip(
-                    self.q_blocks, self.sp_blocks, self.mesh.devices)]
-        return self.keys[tag]
+    def split_key(self, key: torch.Tensor) -> KeyBlocks:
+        """A whole key's slot blocks, each on its slot's device."""
+        nq = self.q_blocks[-1][1]
+        return KeyBlocks([
+            key.index_select(2, torch.cat([
+                torch.arange(lo, hi), nq + torch.arange(slo, shi)]).to(
+                    key.device)).to(d)
+            for (lo, hi), (slo, shi), d in zip(
+                self.q_blocks, self.sp_blocks, self.mesh.devices)],
+            self.mesh, [hi - lo for lo, hi in self.q_blocks])
+
+    def blocks(self, tag) -> KeyBlocks:
+        """The slots' blocks of the context's key of `tag` (a rotation
+        index, "relin" or "conj") as the context keeps it now: placed on
+        first use and kept in `keys`, except a streamed rotation's, which
+        is the key store's current entry (made again if it was evicted)."""
+        if tag in self.keys:
+            return self.keys[tag]
+        ctx = self._ctx()
+        key = ctx._key_entry(tag)
+        if isinstance(key, KeyBlocks):
+            if key.mesh is self.mesh:
+                return key
+            key = key.whole()
+        blocks = self.split_key(key)
+        if tag in ("relin", "conj") or ctx.rot_keys.is_pinned(tag):
+            self.keys[tag] = blocks
+        return blocks
 
 
 def _ntt_on(ntt, device: torch.device):
@@ -343,6 +391,9 @@ def shard_context_tables(ctx, mesh: Mesh):
     """Give every slot its row blocks of the tables and keys (MeshTables)
     and keep them on ctx.mesh_tables; the context's own tensors and ops
     are unchanged (parallel/evaluator.shard_context gives a context whose
-    ops run on the mesh).  Returns the context."""
+    ops run on the mesh).  Under a rotation-key budget only the pinned
+    keys are placed here and the key store makes the others' blocks on
+    demand (the JAX function makes and pins every registered key, which
+    breaks the budget).  Returns the context."""
     ctx.mesh_tables = MeshTables(ctx, mesh)
     return ctx

@@ -180,10 +180,14 @@ def test_sharded_ops_match_single_device():
     assert torch.equal(shard_ciphertext(fresh, mesh).gather().data,
                        fresh.data)
     _check_boot_ops(ctx, sctx, fresh, mesh)
+    # a context under a key budget shards too: only the relin key is
+    # placed, the store makes a streamed key's blocks on first use
+    # (tests/test_torch_sharded_stream.py)
     streamed = CkksContext(CkksConfig(rot_key_budget_mb=1, **SORT_GEOM),
                            device="cpu")
-    with pytest.raises(NotImplementedError):
-        shard_context(streamed, mesh)
+    streamed.gen_rotation_keys([1])
+    assert set(shard_context(streamed, mesh).mesh_tables.keys) == {"relin"}
+    assert streamed.rot_keys.regen_count == 0
     # comp 2, 23 q rows in blocks of 3: the rescale from 19 limbs drops
     # row 18 (slot 6) and then row 17 (slot 5)
     ctx2, sctx2, sa2 = _check_ops(COMP2_GEOM, (23, 19, 9), mesh, rng)
