@@ -35,7 +35,10 @@
    fullest slot class, slot 0's ext digits ([8, 31, n]: 27 q + 4 special
    rows of bitonic's chain; [3, 28, n]: 21 + 7 of k-way's), and so on the
    mehp24 N=512 chain for step 7b (c) ([8, 31, n]: 27 q + 4 special
-   rows).  K1/K2 must be
+   rows).  On step 4d's ring-2^18 chain (n = 2^18, 115 q + 39 special
+   primes, dnum 3): its largest class, the top-level decompose [3, 154,
+   n], and its composite rescale's two, [2, 115, n] forward and the [2,
+   1, n] dropped row.  K1/K2 must be
    bit-equal
    to ntt_fwd_t/ntt_inv_t and inv(fwd(x)) == x.  Prints for each kernel
    and class its launch plan, its time (CUDA events over CUDA-graph
@@ -71,6 +74,14 @@
    0, rot_hoisted_1 within 1.1x of rot_composed_1 (at one step both do
    the same work), launches of K1 and K2 in the table and of K1 in
    ntt_bench.
+4d. The ring-2^18 tier: the registry's hybrid1 N=1024 (depth 56, 115 q
+   + 39 special primes, dnum 3, 131072 slots, the 11 minimal rotation
+   keys {1, 2, 4, ..., 1024} and relin, each [3, 2, 154, 2^18]) through
+   bench.sort_bench at the ring of its registry entry, which must be
+   2^18, one trial, with step 4's gates and prints; then the chain, the
+   keys' shape and bytes and the plaintext cache's cap and entries, with
+   the card's name and power limit.  No fallback: no other ring, no
+   smaller N.
 4b. Bootstrap phase, on the k-way N=16 chain (83 q primes, 28 special):
    one ciphertext at 128 slots, reduced to the raise point, is
    bootstrapped three times back to back, with a level_reduce to the
@@ -193,6 +204,7 @@
    the mehp24 path, and under "paths" the same for every path, the
    bootstrap phase and steps 6, 7, 7b, 8, 9 and 10 (the largest class of
    the CLI's chain, the hybrid1 N=128 chain's, the mehp24 N=512 chain's,
+   for step 4d the ring-2^18 chain's with every class checked on it,
    for the device keygen the [119, n] class with its K1 launches in 7b's
    sort, for the mesh a slot's [4, 30, n] class, for the sharded sort
    slot 3's [4, 29, n] and for step 10's sorts and 7b (c) slot 0's ext
@@ -277,6 +289,12 @@ MICRO_PATH = "micro hybrid1 N=128"
 MICRO_CHAIN = "hybrid1 N=128"
 NTT_PATH = "ntt_bench"
 MICRO_HOIST_SLACK = 1.1      # rot_hoisted_1 within 10% of rot_composed_1
+# step 4d: the ring-2^18 tier, which registry._ring_for gives every depth
+# that does not fit HEStd-128 at ring 2^17: the registry's hybrid1 N=1024
+# (depth 56, 115 q + 39 special primes, dnum 3), its ring taken from the
+# registry entry, not from RING_LOG
+R18_PATH = "hybrid1 N=1024 ring 2^18"
+R18_ALGO, R18_N, R18_TRIALS, R18_RING_LOG = "hybrid1", 1024, 1, 18
 # step 8: the limb-sharded key switch (parallel/) on a chain whose q and
 # special rows divide the mesh.  The registry's comp-2 chains have an odd
 # nq = 3 + 2 * depth, so comp 1, as the JAX package's multichip dryrun
@@ -487,6 +505,8 @@ def _chain_classes(P, label: str) -> list:
         return [big, (f"[{LP}, n] keygen", list(range(LP)), ()),
                 (f"[{digits}, {len(ext)}, n] slot 0 ext digits", ext,
                  (digits,))]
+    if label == R18_PATH:        # and its composite rescale's two
+        return classes[:2] + [classes[4]]
     if label == MESH_PATH:       # one slot's blocks: slot 1's rows
         bq, bs = nq // MESH_SLOTS, (LP - nq) // MESH_SLOTS
         q, s = list(range(bq, 2 * bq)), list(range(nq + bs, nq + 2 * bs))
@@ -593,7 +613,8 @@ def _chain_configs() -> list:
                   (MESH_PATH, _mesh_config()),
                   (SHARD_PATH, chain[SHARD_CHAIN])] + [
                       (mesh, chain[label])
-                      for label, mesh in BOOT_MESH.items()]
+                      for label, mesh in BOOT_MESH.items()] + [
+                      (R18_PATH, full_config(get_params(R18_ALGO, R18_N)))]
 
 
 def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
@@ -651,6 +672,8 @@ def kernel_records(largest: dict, table: list, launches: dict,
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"]}
         main = timing(largest[MAIN])
+        # every class checked on the ring-2^18 chain, rescale's too
+        r18 = [timing(row) for row in table if row["chain"] == R18_PATH]
         recs.append({
             "name": label, "route": "cuda",
             "source": "sorting_fhe_tpu_torch/csrc/ntt.cu",
@@ -666,11 +689,12 @@ def kernel_records(largest: dict, table: list, launches: dict,
             **({"ntt_bench_limb_transforms_per_s": ntt_rate}
                if key == "ntt_fwd" else {}),
             "paths": [{"path": p, "launches": launches[p][key],
-                       **timing(largest[p])}
+                       **timing(largest[p]), **({"classes": r18}
+                                                if p == R18_PATH else {})}
                       for p in [p for p, *_ in PATHS] + [
-                          BOOT_PHASE, CLI_PATH, EXP_PATH, STREAM_PATH,
-                          STREAM_KEYGEN, STREAM_MESH, MESH_PATH, SHARD_PATH,
-                          *BOOT_MESH.values()]]})
+                          R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
+                          STREAM_PATH, STREAM_KEYGEN, STREAM_MESH, MESH_PATH,
+                          SHARD_PATH, *BOOT_MESH.values()]]})
     return recs
 
 
@@ -679,20 +703,20 @@ def _shape_str(shape) -> str:
         f", 2^{shape[-1].bit_length() - 1}]"
 
 
-def run_path(label, algo, N, trials, device, keep: dict | None = None
-             ) -> tuple[dict, dict, dict]:
-    """Step 4 for one path: its sort with the launch counters reset just
-    before and read just after, the gates, and its printed record.
-    Returns the NTT launches of the run, the peak device memory of each
-    phase (bench.sort_bench's device_mem) and the last trial's op
-    census.  `keep` receives sort_bench's `keep` and the record ("rec"),
-    for step 10."""
+def run_path(label, algo, N, trials, device, keep: dict | None = None,
+             ring_log: int = RING_LOG) -> tuple[dict, dict, dict]:
+    """Step 4 for one path: its sort at ring 2^ring_log with the launch
+    counters reset just before and read just after, the gates, and its
+    printed record.  Returns the NTT launches of the run, the peak device
+    memory of each phase (bench.sort_bench's device_mem) and the last
+    trial's op census.  `keep` receives sort_bench's `keep` and the record
+    ("rec"), for steps 4c, 4d and 10."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.core import cuda_ntt
     gc.collect()
     torch.cuda.empty_cache()
     cuda_ntt.reset_launch_counts()
-    rec = bench.sort_bench(algo, N, RING_LOG, trials=trials, device=device,
+    rec = bench.sort_bench(algo, N, ring_log, trials=trials, device=device,
                            keep=keep)
     launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
                 "ntt_inv": cuda_ntt.ntt_inv.launches}
@@ -786,6 +810,43 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
         raise AssertionError(f"{MICRO_PATH}: launches {micro_launches}, "
                              f"ntt_bench {ntt_launches}")
     return micro_launches, ntt_launches, ntt["value"]
+
+
+def ring18_phase(device, card: str) -> dict:
+    """Step 4d: the registry's hybrid1 N=1024 through bench.sort_bench at
+    the ring of its registry entry, which must be 2^R18_RING_LOG (depth
+    56 does not fit HEStd-128 at 2^17), with step 4's gates (run_path:
+    max_err < 0.01, security_ok, launches of K1 and K2).  Prints the
+    chain, the rotation keys' shape and bytes, the plaintext cache's cap
+    and entries after the sort, the card's name and power limit.  Returns
+    the run's launches."""
+    from sorting_fhe_tpu_torch.registry import get_params
+    ring_log = get_params(R18_ALGO, R18_N).ring_dim_full.bit_length() - 1
+    if ring_log != R18_RING_LOG:
+        raise AssertionError(f"{R18_PATH}: the registry gives ring "
+                             f"2^{ring_log}")
+    kept = {}
+    launches, _, _ = run_path(R18_PATH, R18_ALGO, R18_N, R18_TRIALS, device,
+                              kept, ring_log=ring_log)
+    ctx, rec = kept["ctx"], kept["rec"]
+    P = ctx.params
+    rots = sorted(ctx.rot_keys)
+    key = ctx.rot_keys[rots[0]]
+    print(f"[{R18_PATH}] " + json.dumps({
+        "card": card, "chain": P.describe(), "ring_dim": P.n,
+        "slots": kept["slots"], "depth": ctx.cfg.mult_depth, "nq": P.nq,
+        "special": P.num_special, "dnum": ctx.cfg.dnum, "alpha": P.alpha,
+        "logqp": rec["security_logqp"], "security_ok": rec["security_ok"],
+        "rot_keys": rots,
+        "key_shape": list(key.shape), "key_gb": key.nbytes / 1e9,
+        "resident_gb": rec["resident_gb"],
+        "pt_cache_cap_mb": ctx._pt_cache_cap >> 20,
+        "pt_cache_entries": len(ctx._pt_cache)}), flush=True)
+    kept.clear()
+    del ctx, rec, key
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _storages(obj, device, skip: set, depth: int = 0) -> dict:
@@ -1953,6 +2014,10 @@ def main() -> int:
             launches[name] = boot_mesh_phase(device, label, kept)
             print(f"[time] {name} done at "
                   f"{time.perf_counter() - t_start:.1f}s", flush=True)
+    # 4d. the ring-2^18 tier
+    launches[R18_PATH] = ring18_phase(device, card)
+    print(f"[time] {R18_PATH} done at {time.perf_counter() - t_start:.1f}s",
+          flush=True)
     launches[BOOT_PHASE] = bootstrap_phase(device)
     print(f"[time] {BOOT_PHASE} done at "
           f"{time.perf_counter() - t_start:.1f}s", flush=True)

@@ -704,8 +704,7 @@ class CkksContext:
         coeffs = encoding.encode_real(np.asarray(values, dtype=np.float64),
                                       self.n, self.delta, slots)
         data = self.encryptor.encrypt_coeffs(coeffs)
-        return self.ct_type(self._place(torch.from_numpy(
-            data.view(np.int32)).to(self.device)), self.delta, 1, slots)
+        return self.ct_type(self._place(data), self.delta, 1, slots)
 
     def decrypt(self, ct: Ciphertext, complex_out: bool = False) -> np.ndarray:
         if self.decryptor is None:

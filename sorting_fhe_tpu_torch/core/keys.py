@@ -1,10 +1,12 @@
 """Client-side key generation, encryption and decryption.
 
-Counterpart of sorting_fhe_tpu/core/keys.py.  Sampling, the public key,
-encryption and decryption are host numpy code, copied; the key-switching
-key assembly runs on the params' device through the port's NTT (K1 on a
-CUDA device).  Every draw from `np.random.default_rng` happens in the same
-order as in the JAX package, so the same seed gives bit-identical keys.
+Counterpart of sorting_fhe_tpu/core/keys.py.  Sampling and decryption
+are host numpy code, copied; the public key's and each encryption's NTTs
+(one K1 call each) and the key-switching key assembly run on the params'
+device through the port's NTT (K1 on a CUDA device), with the JAX
+package's arithmetic.  Every draw from `np.random.default_rng` happens in
+the same order as in the JAX package, so the same seed gives
+bit-identical keys and ciphertexts.
 
 Hybrid key-switching keys: the q-chain is split into `dnum` digits of
 `alpha` primes; `alpha` special primes P extend the basis.  Key for secret
@@ -34,7 +36,8 @@ import torch
 from . import nt
 from .cuda_ntt import ntt_fwd
 from .host_poly import (
-    host_ntt, sample_ternary, sample_gaussian, rns_to_centered_bigint,
+    coeffs_to_rns, host_ntt, sample_ternary, sample_gaussian,
+    rns_to_centered_bigint,
 )
 from .params import CkksParams
 from .rns import mont_mul, add_mod, sub_mod
@@ -42,11 +45,6 @@ from .rns import mont_mul, add_mod, sub_mod
 I32 = torch.int32
 I64 = torch.int64
 _M64 = (1 << 64) - 1
-
-
-def _to_mont(x: np.ndarray, p: int) -> np.ndarray:
-    r = (1 << 32) % p
-    return (x.astype(np.uint64) * r % p)
 
 
 class _LazySNtt(dict):
@@ -83,20 +81,20 @@ class KeyGenerator:
 
     # ---------------- public / encryption keys ----------------
     def _gen_public_key(self):
+        """(b, a) as host uint64 [nq, n], b = -a*s + e in the plain NTT
+        domain: the JAX package's draws and arithmetic, with the NTTs of s
+        and e made in one K1 call on the params' device."""
         P = self.params
         n = P.n
         qs = P.q
         e = sample_gaussian(n, P.cfg.sigma, self.rng)
-        b = np.empty((len(qs), n), dtype=np.uint64)
-        a = np.empty((len(qs), n), dtype=np.uint64)
-        for i, p in enumerate(qs):
-            ai = self.rng.integers(0, p, size=n, dtype=np.uint64)  # NTT dom
-            s = self.sk.s_ntt[p]
-            en = host_ntt(p, n).fwd((e % p).astype(np.uint64))
-            bi = (p - ai * s % p + en) % p
-            b[i] = bi
-            a[i] = ai
-        return b, a
+        a = np.stack([self.rng.integers(0, p, size=n, dtype=np.uint64)
+                      for p in qs])                           # NTT domain
+        p = _q_col(P)
+        s_n, e_n = _ntt_prefix(_small_rows(np.stack([self.sk.s_coeffs, e]),
+                                           P), P).to(I64)
+        b = (p - _to_dev(a, P) * s_n % p + e_n) % p
+        return b.cpu().numpy().astype(np.uint64), a
 
     # ---------------- key switching keys ----------------
     def _digit_indices(self) -> list[list[int]]:
@@ -222,13 +220,36 @@ def _negacyclic_square_int(s: np.ndarray, p: int, n: int) -> np.ndarray:
     return np.where(s2 > p // 2, s2 - p, s2)
 
 
+def _q_col(P: CkksParams) -> torch.Tensor:
+    """The q primes, int64 [nq, 1] on the params' device."""
+    return P.primes_dev[:P.nq].reshape(-1, 1)
+
+
+def _to_dev(x: np.ndarray, P: CkksParams) -> torch.Tensor:
+    """Host residues below 2^63 (uint64 or int64) -> int64 on the device."""
+    return torch.from_numpy(np.ascontiguousarray(x).view(np.int64)).to(
+        P.device)
+
+
+def _small_rows(small: np.ndarray, P: CkksParams) -> torch.Tensor:
+    """Host int64 [k, n] small signed polynomials -> their residues on
+    every q row, int64 [k, nq, n] on the device."""
+    return _to_dev(small, P)[:, None, :] % _q_col(P)
+
+
+def _ntt_prefix(x: torch.Tensor, P: CkksParams) -> torch.Tensor:
+    """Residues int [..., r, n] of the chain's first r rows -> their
+    NTTs, int32, in one K1 call (its plain version on the CPU); the bits
+    of the host NTT (host_poly.HostNtt) of each row."""
+    rows = torch.arange(x.shape[-2], dtype=I32, device=P.device)
+    return ntt_fwd(x.to(I32).contiguous(), P.ntt, rows)
+
+
 def _ntt_mont(x: torch.Tensor, P: CkksParams) -> torch.Tensor:
     """Plain residues int64 [nrows, n], one row per chain prime -> NTT +
     Montgomery form, int32, through K1 (its plain version on the CPU)."""
     p = P.primes_dev.reshape(-1, 1)
-    m = x * ((1 << 32) % p) % p
-    rows = torch.arange(len(P.all_primes), dtype=I32, device=P.device)
-    return ntt_fwd(m.to(I32).contiguous(), P.ntt, rows)
+    return _ntt_prefix(x * ((1 << 32) % p) % p, P)
 
 
 def _ksk_digit(s_ntt, sp_ntt, a_j, e_j, w_j, P: CkksParams) -> torch.Tensor:
@@ -282,40 +303,32 @@ def _device_draw(P: CkksParams, seed: int) -> tuple:
 
 
 class Encryptor:
-    """Public-key encryptor (host side)."""
+    """Public-key encryptor: host draws, the NTTs and products on the
+    params' device."""
 
     def __init__(self, params: CkksParams, public_key, rng=None):
         self.params = params
         self.pk = public_key
         self.rng = rng or np.random.default_rng(params.cfg.seed + 1)
 
-    def encrypt_coeffs(self, coeffs: np.ndarray) -> np.ndarray:
-        """Integer coefficient poly (float64 or object) -> [2, nq, n] u32
-        NTT+Montgomery ciphertext data at full level."""
+    def encrypt_coeffs(self, coeffs: np.ndarray) -> torch.Tensor:
+        """Integer coefficient poly (float64 or object) -> int32 [2, nq, n]
+        NTT+Montgomery ciphertext data at full level, on the params'
+        device.  The JAX package's draws and arithmetic; the NTTs of u,
+        e0, e1 and the message on every q row are one K1 call."""
         P = self.params
         n = P.n
-        qs = P.q
         b, a = self.pk
         u = sample_ternary(n, self.rng)
         e0 = sample_gaussian(n, P.cfg.sigma, self.rng)
         e1 = sample_gaussian(n, P.cfg.sigma, self.rng)
-        out = np.empty((2, len(qs), n), dtype=np.uint32)
-        for i, p in enumerate(qs):
-            hp = host_ntt(p, n)
-            un = hp.fwd((u % p).astype(np.uint64))
-            e0n = hp.fwd((e0 % p).astype(np.uint64))
-            e1n = hp.fwd((e1 % p).astype(np.uint64))
-            if coeffs.dtype == object:
-                mc = (coeffs % p).astype(np.uint64)
-            else:
-                r = np.fmod(coeffs, float(p))
-                mc = np.where(r < 0, r + p, r).astype(np.uint64)
-            mn = hp.fwd(mc)
-            c0 = (b[i] * un + e0n + mn) % p
-            c1 = (a[i] * un + e1n) % p
-            out[0, i] = _to_mont(c0, p).astype(np.uint32)
-            out[1, i] = _to_mont(c1, p).astype(np.uint32)
-        return out
+        p = _q_col(P)
+        un, e0n, e1n, mn = _ntt_prefix(torch.cat([
+            _small_rows(np.stack([u, e0, e1]), P),
+            _to_dev(coeffs_to_rns(coeffs, P.q), P)[None]]), P).to(I64)
+        c0 = (_to_dev(b, P) * un + e0n + mn) % p
+        c1 = (_to_dev(a, P) * un + e1n) % p
+        return (torch.stack([c0, c1]) * ((1 << 32) % p) % p).to(I32)
 
 
 class Decryptor:

@@ -177,11 +177,12 @@ def ntt_prime_pool(ring_dim: int, max_bits: int = 31) -> tuple[int, ...]:
 
 
 def bit_reverse_indices(n: int) -> np.ndarray:
-    bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    """The JAX package's bit-reversal permutation, built by doubling:
+    rev_2m = (2 rev_m, 2 rev_m + 1).  Its per-bit loop over [n] took 85 ms
+    a prime at n = 2^18, three quarters of make_ntt_tables."""
+    rev = np.zeros(1, dtype=np.int64)
+    while len(rev) < n:
+        rev = np.concatenate([2 * rev, 2 * rev + 1])
     return rev
 
 

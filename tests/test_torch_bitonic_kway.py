@@ -18,6 +18,7 @@ import collections
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
@@ -34,6 +35,8 @@ from sorting_fhe_tpu_torch.models.kway import KWaySorter as TKWay
 from sorting_fhe_tpu_torch.ops.sign import (SignConfig as TS,
                                             CompositeSignConfig as TCS)
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 CENSUS_OPS = ("rotate", "mult", "square", "mult_plain", "mult_scalar",
               "add", "sub", "rsub", "make_plaintext", "rescale",

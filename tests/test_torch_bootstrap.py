@@ -42,6 +42,8 @@ from sorting_fhe_tpu_torch.core.ntt import ntt_inv_t
 from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
 from sorting_fhe_tpu_torch.registry import get_params, full_config
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 CFG = dict(ring_dim=1 << 12, mult_depth=4, scale_bits=52, comp=2, dnum=2,
            seed=11, limb_pad=1)
 BOOT_CFG = dict(ring_dim=1 << 8, mult_depth=16, scale_bits=52, comp=2,

@@ -14,9 +14,12 @@ At most two tier-1 tests per file (see tests/test_torch_serial.py).
 import json
 
 import pytest
+import torch
 
 from sorting_fhe_tpu import characterize as JChar
 from sorting_fhe_tpu_torch import characterize as TChar
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 
 def test_parse_func_matches_jax():

@@ -17,14 +17,18 @@ import pytest
 import torch
 
 from sorting_fhe_tpu.core import ckks as jck
+from sorting_fhe_tpu.core.keys import Encryptor as JEncryptor
 from sorting_fhe_tpu.core.keys import KeyGenerator as JKeyGen
 from sorting_fhe_tpu.core.params import CkksConfig as JCfg
 from sorting_fhe_tpu_torch.core import ckks as tck
 from sorting_fhe_tpu_torch.core.interop import (keys_to_torch,
                                                 residues_to_numpy,
                                                 residues_to_torch)
+from sorting_fhe_tpu_torch.core.keys import Encryptor as TEncryptor
 from sorting_fhe_tpu_torch.core.keys import KeyGenerator as TKeyGen
 from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 CFG = dict(ring_dim=1 << 12, mult_depth=4, scale_bits=52, comp=2, dnum=2,
            seed=11, limb_pad=1)
@@ -89,7 +93,9 @@ def test_ops_bit_equal(ctxs):
 
 
 def test_keygen_bit_equal():
-    """Same seed, same draw order: identical public and relin keys."""
+    """Same seed, same draw order: identical public and relin keys, and
+    identical encryptions of the same coefficients (float64 and big
+    integers)."""
     jp = jck.CkksParams(JCfg(**CFG))
     tp = tck.CkksParams(TCfg(**CFG), "cpu")
     jg, tg = JKeyGen(jp, seed=5), TKeyGen(tp, seed=5)
@@ -99,3 +105,7 @@ def test_keygen_bit_equal():
     for jx, tx in zip(pk, tg.public_key):
         np.testing.assert_array_equal(jx, tx)
     assert torch.equal(relin, tg.gen_relin_key())
+    je, te = JEncryptor(jp, jg.public_key), TEncryptor(tp, tg.public_key)
+    coeffs = np.rint(np.random.default_rng(3).normal(0, 2.0 ** 60, tp.n))
+    for c in (coeffs, coeffs.astype(np.int64).astype(object) * 3 ** 40):
+        _eq(je.encrypt_coeffs(c), te.encrypt_coeffs(c), "encrypt")

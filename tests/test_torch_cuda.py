@@ -15,6 +15,8 @@ import torch
 from sorting_fhe_tpu_torch.core import cuda_ntt, nt
 from sorting_fhe_tpu_torch.core.ntt import NttContext, ntt_fwd_t, ntt_inv_t
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 pytestmark = pytest.mark.cuda
 
 
@@ -51,6 +53,27 @@ def test_kernels_bit_equal_to_plain(device, logn):
         assert torch.equal(i, ntt_inv_t(f, tabs.p[r], tabs.ipsi[r],
                                         tabs.n_inv[r]))
         assert torch.equal(i, x)
+
+
+def test_kernels_at_ring18_chain(device):
+    """The ring-2^18 tier's largest class, [3, 154, 2^18]: the top-level
+    decompose of hybrid1 N=1024 (115 q + 39 special primes, dnum 3) on
+    its registry chain's rows, bit-equal to the plain versions."""
+    from sorting_fhe_tpu_torch.core.params import CkksParams
+    from sorting_fhe_tpu_torch.registry import full_config, get_params
+    P = CkksParams(full_config(get_params("hybrid1", 1024)), device)
+    tabs, n, L = P.ntt, P.n, len(P.all_primes)
+    assert (n, L, -(-P.nq // P.alpha)) == (1 << 18, 154, 3)
+    p = np.asarray(P.all_primes, np.uint64).reshape(-1, 1)
+    x = (np.random.default_rng(18).integers(0, 1 << 62, size=(3, L, n),
+                                            dtype=np.uint64) % p)
+    x = torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(device)
+    rows = torch.arange(L, dtype=torch.int32, device=device)
+    f = cuda_ntt.ntt_fwd(x, tabs, rows)
+    assert torch.equal(f, ntt_fwd_t(x, tabs.p, tabs.psi))
+    i = cuda_ntt.ntt_inv(f, tabs, rows)
+    assert torch.equal(i, ntt_inv_t(f, tabs.p, tabs.ipsi, tabs.n_inv))
+    assert torch.equal(i, x)
 
 
 def test_launch_plan_covers_every_stage(device):

@@ -14,6 +14,8 @@ from sorting_fhe_tpu_torch.core.interop import keys_to_torch, residues_to_torch
 from sorting_fhe_tpu_torch.core.ntt import NttContext
 from sorting_fhe_tpu_torch.core.params import CkksConfig, CkksParams
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 
 @pytest.fixture
 def no_card(monkeypatch):

@@ -21,6 +21,7 @@ from dataclasses import asdict
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
@@ -31,6 +32,8 @@ from sorting_fhe_tpu_torch.core import params as tparams
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models.direct_sort import DirectSort as TDirectSort
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 SORT_FN = {"direct": "sort", "hybrid": "sort_hybrid",
            "hybrid1": "sort_hybrid1", "hybrid2": "sort_hybrid2"}

@@ -27,6 +27,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu import serial as jserial
 from sorting_fhe_tpu.core.params import CkksConfig as JCfg
@@ -38,6 +39,8 @@ from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
 from sorting_fhe_tpu_torch.driver import SortContext as TSortContext
 from sorting_fhe_tpu_torch.models.direct_sort import minimal_rotations
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 CFG = dict(ring_dim=1 << 10, mult_depth=8, scale_bits=52, comp=2, dnum=3)
 V = np.array([0.1, 0.2, 0.3, 0.4])

@@ -15,6 +15,7 @@ At most two tier-1 tests per file (see tests/test_torch_serial.py).
 """
 
 import pytest
+import torch
 
 from sorting_fhe_tpu import experiments as JExp
 from sorting_fhe_tpu import registry as jreg
@@ -22,6 +23,8 @@ from sorting_fhe_tpu.utils import memory as JMem
 from sorting_fhe_tpu_torch import experiments as TExp
 from sorting_fhe_tpu_torch import registry as treg
 from sorting_fhe_tpu_torch.utils import memory as TMem
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 HOST_KEYS = {"idle_gb", "setup_gb", "peak_gb", "average_gb",
              "crypto_overhead_gb", "sorting_overhead_gb"}

@@ -38,6 +38,8 @@ from sorting_fhe_tpu_torch.core.keystore import KeyStore as TKeyStore
 from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
 from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 # tests/test_keystore.py's streaming config
 CFG = dict(ring_dim=1 << 8, mult_depth=6, scale_bits=26, comp=1, dnum=2,
            seed=77)

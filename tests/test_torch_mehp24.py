@@ -15,6 +15,7 @@ at N=4 give ciphertexts bit-equal to the JAX package's.
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
@@ -24,6 +25,8 @@ from sorting_fhe_tpu_torch.bench import mehp24_degrees
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models import mehp24 as TM
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 # each package's module with its own PlainContext
 MODELS = ((JM, JPlain), (TM, TPlain))

@@ -30,6 +30,8 @@ from sorting_fhe_tpu_torch.core.interop import (residues_to_numpy,
                                                 residues_to_torch)
 from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 ROOT_BENCH = Path(__file__).resolve().parents[1] / "bench.py"
 # the JAX micro_bench's keys, in its order (bench.py:185-229)
 MICRO_KEYS = ("mult_relin_ms", "rescale_ms", "hoist_precompute_ms",

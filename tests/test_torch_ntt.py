@@ -25,6 +25,8 @@ from sorting_fhe_tpu_torch.core import cuda_ntt
 from sorting_fhe_tpu_torch.core.ntt import NttContext as TNtt
 from sorting_fhe_tpu_torch.core.ntt import ntt_fwd_t, ntt_inv_t
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 
 # one XLA compile per shape instead of one per eager stage op
 j_fwd = jax.jit(jntt.ntt_fwd_t)

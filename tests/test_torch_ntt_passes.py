@@ -17,6 +17,8 @@ import torch
 from sorting_fhe_tpu_torch.core import nt
 from sorting_fhe_tpu_torch.core.ntt import NttContext, ntt_fwd_t, ntt_inv_t
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 
 def _step(v, p, tw, c, fwd, K, j, loge, tw_shift, ninv=None):
     """One register step on v [..., lanes, 2^loge] (elements last), with

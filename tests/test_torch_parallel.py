@@ -30,6 +30,8 @@ from sorting_fhe_tpu_torch.parallel.mesh import (
     shard_ciphertext, shard_context_tables)
 from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 CPU = torch.device("cpu")
 GEOM = dict(ring_dim=1 << 8, mult_depth=14, scale_bits=26, comp=1)
 N = 4

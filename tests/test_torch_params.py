@@ -6,12 +6,15 @@ from dataclasses import asdict
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu.core.params import CkksParams as JParams
 from sorting_fhe_tpu import registry as jreg
 from sorting_fhe_tpu_torch.core import nt as tnt
 from sorting_fhe_tpu_torch.core.params import CkksParams as TParams
 from sorting_fhe_tpu_torch import registry as treg
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 
 @pytest.mark.parametrize("tier", ["cheap", "full"])

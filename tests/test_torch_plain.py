@@ -9,6 +9,7 @@ import collections
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu_torch import registry as treg
@@ -16,6 +17,8 @@ from sorting_fhe_tpu_torch.models.bitonic import BitonicSort
 from sorting_fhe_tpu_torch.models.direct_sort import DirectSort
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
 from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 CENSUS_OPS = ("rotate", "mult", "square", "mult_plain", "mult_scalar",
               "add", "sub", "rsub", "make_plaintext", "rotate_plaintext",

@@ -13,6 +13,8 @@ from sorting_fhe_tpu.core import nt
 from sorting_fhe_tpu.core import rns as jrns
 from sorting_fhe_tpu_torch.core import rns as trns
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 N = 4096
 # a 30-bit base prime, a 28-bit rescale-sized prime and a 2^31-edge prime
 PRIMES = [nt.find_ntt_primes(30, 1, 1 << 10)[0],

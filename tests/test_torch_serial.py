@@ -31,6 +31,7 @@ import zipfile
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu import serial as jserial
 from sorting_fhe_tpu.core.ckks import CkksContext as JC
@@ -39,6 +40,8 @@ from sorting_fhe_tpu_torch import serial as tserial
 from sorting_fhe_tpu_torch.core.ckks import CkksContext as TC
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 CFG = dict(ring_dim=1 << 10, mult_depth=8, scale_bits=52, comp=2, dnum=3)
 # tests/test_serial.py's round-trip config

@@ -35,6 +35,8 @@ from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
 from sorting_fhe_tpu_torch.parallel.mesh import make_mesh, shard_ciphertext
 from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 CPU = torch.device("cpu")
 SORT_GEOM = dict(ring_dim=1 << 8, mult_depth=26, scale_bits=26, comp=1,
                  dnum=4)

@@ -43,6 +43,8 @@ from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
 from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
 from test_torch_sharded import _census_gathers, _same
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 CPU = torch.device("cpu")
 BOOT_CFG = dict(ring_dim=1 << 8, mult_depth=16, scale_bits=52, comp=2,
                 dnum=3, secret_hw=16)

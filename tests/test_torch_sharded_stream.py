@@ -33,6 +33,8 @@ from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
 from sorting_fhe_tpu_torch.parallel.mesh import KeyBlocks, make_mesh
 from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
 
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
+
 CPU = torch.device("cpu")
 GEOM = dict(ring_dim=1 << 10, mult_depth=28, scale_bits=26, comp=1,
             dnum=2, seed=77, rot_key_budget_mb=1)

@@ -12,6 +12,7 @@ bit-equal outputs and both within 0.01 of np.sort.
 
 import numpy as np
 import pytest
+import torch
 
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
@@ -21,6 +22,8 @@ from sorting_fhe_tpu_torch import registry as treg
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models.direct_sort import DirectSort as TDirectSort
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
+
+torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
 
 def test_hybrid1_n128_plain_matches_jax():
