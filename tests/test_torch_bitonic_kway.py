@@ -8,6 +8,12 @@ M=2, k=5 M=1) give exactly the JAX models' outputs with the same census
 of context calls, and a counting bootstrap hook fires at the same points
 with the same values in both packages.
 
+Tier-1, encrypted on the port alone (compared with np.sort, no JAX):
+tests/test_bootstrap_depth.py's two fixtures, the real BootstrapHook
+behind BitonicSort's level trigger (depth 58, boot at level 29) and
+behind k-way k=2 M=4's checkLevelAndBoot (depth 40), at ring 2^8, each
+with the fixture's depth, trigger, sign degrees, input and gate.
+
 `slow`: an encrypted BitonicSort N=8 with the real BootstrapHook at
 tests/test_bootstrap.py's config (ring 2^9, depth 26, dnum 4, hw 16), and
 a KWaySorter k=2 M=2 with recrypt_hook at tests/test_kway.py's config
@@ -21,7 +27,6 @@ import pytest
 import torch
 
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
-from sorting_fhe_tpu.utils.testvec import vector_with_min_diff
 from sorting_fhe_tpu import registry as jreg
 from sorting_fhe_tpu.models.bitonic import BitonicSort as JBitonic
 from sorting_fhe_tpu.models.kway import KWaySorter as JKWay
@@ -29,12 +34,16 @@ from sorting_fhe_tpu.ops.sign import (SignConfig as JS,
                                       CompositeSignConfig as JCS)
 from sorting_fhe_tpu_torch import registry as treg
 from sorting_fhe_tpu_torch.bench import BITONIC_GATE
+from sorting_fhe_tpu_torch.core.bootstrap import BootstrapHook as THook
+from sorting_fhe_tpu_torch.core.ckks import CkksContext as TC
+from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
 from sorting_fhe_tpu_torch.core.interop import residues_to_numpy
 from sorting_fhe_tpu_torch.models.bitonic import BitonicSort as TBitonic
 from sorting_fhe_tpu_torch.models.kway import KWaySorter as TKWay
 from sorting_fhe_tpu_torch.ops.sign import (SignConfig as TS,
                                             CompositeSignConfig as TCS)
 from sorting_fhe_tpu_torch.utils.plain import PlainContext as TPlain
+from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
 
 torch.set_num_threads(1)   # one thread per test worker: six share the cores
 
@@ -147,11 +156,56 @@ def test_boot_hook_fires_at_the_same_points(model):
     assert len(tseen) == want
 
 
+def _counting_mod_raise(ctx):
+    """Wrap ctx.mod_raise so that every real bootstrap is counted."""
+    raised = []
+    orig = ctx.mod_raise
+    ctx.mod_raise = lambda c, _f=orig, _r=raised: _r.append(_f(c)) or _r[-1]
+    return raised
+
+
+def test_bitonic_real_bootstrap_at_depth():
+    """tests/test_bootstrap_depth.py::test_bitonic_real_bootstrap_ring12
+    at ring 2^8: N=4, depth 58, boot at consumed level 29, sign (4,3,3),
+    inputs in [0, 255], and the reference's dual gate: max error < 1.0
+    and no slot over 0.1 (BitonicSortTest.cpp:88-103)."""
+    cfg = TCfg(ring_dim=1 << 8, mult_depth=58, scale_bits=52, comp=2,
+               dnum=6, secret_hw=32)
+    ctx = TC(cfg, device="cpu")
+    raised = _counting_mod_raise(ctx)
+    N = 4
+    bs = TBitonic(ctx, N, bootstrap_level=29, bootstrap_hook=THook(ctx))
+    v = vector_with_min_diff(N, 0, 255, 0.01, np.random.default_rng(11))
+    out = bs.sort(ctx.encrypt(v, slots=N),
+                  TS(TCS(4, 3, 3), mult_depth=cfg.mult_depth))
+    err = np.abs(ctx.decrypt(out)[:N] - np.sort(v))
+    assert len(raised) >= 1
+    assert err.max() < 1.0, err
+    assert int((err > 0.1).sum()) == 0, err
+
+
+def test_kway_k2_m4_real_bootstrap_at_depth():
+    """tests/test_bootstrap_depth.py::test_kway_k2_m4_real_bootstrap_ring11
+    at ring 2^8: k=2 M=4 (N=16) at depth 40, sign (3,2,5), with real
+    bootstraps wherever checkLevelAndBoot fires; gate 0.01."""
+    cfg = TCfg(ring_dim=1 << 8, mult_depth=40, scale_bits=52, comp=2,
+               dnum=6, secret_hw=32, limb_pad=8)
+    ctx = TC(cfg, device="cpu")
+    raised = _counting_mod_raise(ctx)
+    N = 16
+    sorter = TKWay(ctx, 2, 4, mult_depth=cfg.mult_depth,
+                   bootstrap_hook=THook(ctx))
+    v = vector_with_min_diff(N, 0, 1, 1.0 / N, np.random.default_rng(12))
+    out = sorter.sort(ctx.encrypt(v, slots=N),
+                      TS(TCS(3, 2, 5), mult_depth=cfg.mult_depth))
+    err = np.abs(ctx.decrypt(out)[:N] - np.sort(v))
+    assert len(raised) >= 1
+    assert err.max() < 0.01, err
+
+
 def _both(cfg):
     from sorting_fhe_tpu.core.ckks import CkksContext as JC
     from sorting_fhe_tpu.core.params import CkksConfig as JCfg
-    from sorting_fhe_tpu_torch.core.ckks import CkksContext as TC
-    from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
     return JC(JCfg(**cfg)), TC(TCfg(**cfg), device="cpu")
 
 
@@ -163,7 +217,6 @@ def test_bitonic_n8_real_bootstrap_against_jax():
     np.sort.  At its depth 26 a stage runs out of levels after a bootstrap
     and both packages decrypt to about 0 (max error 226.7)."""
     from sorting_fhe_tpu.core.bootstrap import BootstrapHook as JHook
-    from sorting_fhe_tpu_torch.core.bootstrap import BootstrapHook as THook
     cfg = dict(ring_dim=1 << 9, mult_depth=30, scale_bits=52, comp=2,
                dnum=4, secret_hw=16)
     N = 8
@@ -172,9 +225,7 @@ def test_bitonic_n8_real_bootstrap_against_jax():
     runs = []
     for ctx, Sort, Hook, S, CS in zip(_both(cfg), (JBitonic, TBitonic),
                                       (JHook, THook), (JS, TS), (JCS, TCS)):
-        raised = []
-        orig = ctx.mod_raise
-        ctx.mod_raise = lambda c, _f=orig, _r=raised: _r.append(_f(c)) or _r[-1]
+        raised = _counting_mod_raise(ctx)
         bs = Sort(ctx, N, bootstrap_level=8, bootstrap_hook=Hook(ctx))
         out = bs.sort(ctx.encrypt(v, slots=N),
                       S(CS(3, 2, 2), mult_depth=cfg["mult_depth"]))

@@ -22,8 +22,8 @@ client within 1e-6.
 
 Each tier-1 file of this slice holds at most two tests: pytest-xdist's
 `--dist loadfile` queues files by test count, and a file with more
-tests than tests/test_bootstrap_depth.py's two would be handed out
-before it and delay the suite's longest file (tools/xdist_replay.py).
+tests is handed out before the suite's longer files and can delay them
+(tools/xdist_replay.py replays the schedule).
 """
 
 import json
