@@ -5,10 +5,11 @@
 1. Environment: Python/torch/CUDA versions and the card's name and power
    limit (nvidia-smi).  Exits non-zero without a CUDA device: nothing here
    runs on the CPU instead.
-2. Build: compiles the NTT kernels (sorting_fhe_tpu_torch/csrc/ntt.cu) with
-   nvcc from this checkout's sources and prints the build time and the
-   registers of each kernel.  When a copy of an earlier version of the
-   kernels sits at _chip/prev/ntt.cu (gitignored; e.g. `git show
+2. Build: compiles the kernels (sorting_fhe_tpu_torch/csrc/ntt.cu, K1/K2,
+   and csrc/basis.cu, the base conversion) with nvcc from this checkout's
+   sources and prints the build time and the registers of each kernel.
+   When a copy of an earlier version of the NTT kernels sits at
+   _chip/prev/ntt.cu (gitignored; e.g. `git show
    <commit>:sorting_fhe_tpu_torch/csrc/ntt.cu`), it is built beside them,
    in parallel, for the timing comparison of step 3 only.
 3. Kernels vs plain versions, on the card, at ring 2^17 on the real
@@ -48,6 +49,21 @@
    and share of it, the plain version's time and the earlier kernels'
    time in the same call (in turns: earlier, new, new, earlier; null
    without the copy).
+   Then the base conversion (core/cuda_basis.py) on the level tables of
+   the hybrid1 N=128 chain (ModUp and ModDown at the top level, 95 q +
+   24 special rows in digits of 24, and at l = 3), the mehp24 N=128
+   chain (top level, digits of 30) and step 4d's ring-2^18 chain (top
+   level, digits of 39), ModUp with each digit's own rows copied
+   (keep_own); and as the mesh calls it, without pre-scale, onto one
+   slot's rows (_extend: every digit onto the slot's ext rows; _phase3:
+   the special rows onto its q rows) at the slots whose K1/K2 classes
+   are checked above: slot 3 of step 9, slot 1 of step 8, slot 0 of
+   step 10's two chains and of 7b (c)'s.  The kernel must be bit-equal
+   to base_conv_t; printed are its time (raw launches into preallocated
+   outputs, as K1/K2's), its bound (the input read and the output
+   written once over 3.35 TB/s; the multiply-adds whose sums the caller
+   uses, at two IMADs each, over 132 SMs x 64 a clock x the SM's
+   maximum clock) and share of it, and the plain version's time.
 4. The sorts, in this order, each through bench.sort_bench at ring 2^17,
    HEStd-128, on cuda:0, with the kernel launch counters reset just
    before it and read just after: hybrid1 N=128 (2 trials), mehp24 N=128
@@ -58,9 +74,10 @@
    secret of Hamming weight 64).  Each requires its gate (max_err < 0.01;
    bitonic: its fixture's max error < 1.0 with no slot off by more than
    0.1 on the 0..255 scale), the HEStd-128 security check, launches of
-   both kernels in every trial and, for bitonic and k-way, at least one
-   bootstrap in every trial; it prints its trials, op census, plaintext
-   encodes, NTT launches and bootstraps per trial, the peak device memory
+   K1, K2 and the base conversion in every trial and, for bitonic and
+   k-way, at least one bootstrap in every trial; it prints its trials,
+   op census, plaintext encodes, kernel launches and bootstraps per
+   trial, the peak device memory
    of each phase and the resident key set.
 4c. On step 4's hybrid1 N=128 context, right after its trials (its
    chain: 95 q + 24 special rows, dnum 4): bench.micro_bench at the top
@@ -72,8 +89,8 @@
    just before and read just after, printed on a line of its own with
    the card's name and power limit.  Requires every value finite and >
    0, rot_hoisted_1 within 1.1x of rot_composed_1 (at one step both do
-   the same work), launches of K1 and K2 in the table and of K1 in
-   ntt_bench.
+   the same work), launches of K1, K2 and the base conversion in the
+   table and of K1 in ntt_bench.
 4d. The ring-2^18 tier: the registry's hybrid1 N=1024 (depth 56, 115 q
    + 39 special primes, dnum 3, 131072 slots, the 11 minimal rotation
    keys {1, 2, 4, ..., 1024} and relin, each [3, 2, 154, 2^18]) through
@@ -86,7 +103,8 @@
    one ciphertext at 128 slots, reduced to the raise point, is
    bootstrapped three times back to back, with a level_reduce to the
    raise point between them; each decrypts within 1e-3 of the input
-   (tests/test_bootstrap.py's gate).  Prints the error after each
+   (tests/test_bootstrap.py's gate), and the phase launches all three
+   kernels.  Prints the error after each
    bootstrap, its seconds by phase, its plaintext encodes, the device
    memory still allocated after it and the plaintext cache's bytes, and
    then (cache_bytes) the bytes reachable from each of the context's
@@ -106,13 +124,14 @@
    client decrypts it.  Requires that the files hold public material
    only (the .npz members are keys, and the context file names no seed:
    the secret that a client built from it draws differs from the
-   client's), max_err < 0.01, the security check and launches of both
-   kernels in the server's sort (as the server prints them).
+   client's), max_err < 0.01, the security check and launches of K1,
+   K2 and the base conversion in the server's sort (as the server prints
+   them).
 7. The experiment harness: experiments.main for hybrid1 N=128, 2 trials
    with --reuse-context, in this process.  Prints its N128_summary.txt
    and each trial's device memory by phase (utils/memory.py) beside
    sort_bench's for the same cell in step 4; requires max_err < 0.01 in
-   each trial and launches of both kernels.
+   each trial and launches of K1, K2 and the base conversion.
 7b. Rotation-key streaming with device keygen, on the mehp24 N=512
    chain (depth 51, dnum 8; 41 rotation keys of 0.998 GB).  (a) For
    rotations 1, 32640 and 65280 (= -256, a split stride): the device
@@ -123,12 +142,13 @@
    np.roll.  (b) experiments.main for mehp24 N=512 (sort_large_array_fg,
    one trial, a fresh context) with SORTING_FHE_KEY_BUDGET_MB=5120, which
    holds 5 keys, with the launch counters reset just before and read just
-   after: requires max_err < 0.01, HEStd-128, launches of K1 and K2 in
-   the sort, more regenerations than keys and the resident keys within
-   the budget; prints setup seconds and exec ms, the regenerations and
-   the seconds in the key store's hook (synchronised), the K1 launches
-   of the keygen apart from the sort's, the device memory per phase, the
-   bytes allocated after the sort and the caches' bytes (cache_bytes).
+   after: requires max_err < 0.01, HEStd-128, launches of K1, K2 and
+   the base conversion in the sort, more regenerations than keys and
+   the resident keys within the budget; prints setup seconds and exec
+   ms, the regenerations and the seconds in the key store's hook
+   (synchronised), the K1 launches of the keygen apart from the sort's,
+   the device memory per phase, the bytes allocated after the sort and
+   the caches' bytes (cache_bytes).
    (c) Right after (b), before its context is released: the same sort on
    that context and input on shard_context(ctx, a virtual mesh of 4
    slots on cuda:0) under the same budget (the key store keeps each
@@ -137,7 +157,7 @@
    torch.equal to (b)'s output, (b)'s census, the 0.01 gate, as many
    regenerations as (b), the store's bytes within the budget at every
    regeneration of (b) and (c) and at the end, no streamed key's blocks
-   kept by the mesh, and launches of K1 and K2; prints both runs'
+   kept by the mesh, and launches of the three kernels; prints both runs'
    seconds and their ratio, the regenerations, the seconds in the hook
    and each peak.
 8. The limb-sharded key switch (sorting_fhe_tpu_torch/parallel/) on a
@@ -154,7 +174,7 @@
    this scale in both paths, is printed); exactly two gathers per op of
    (D-1)/D of the [96, n] digit residues and of the [2, 24, n] special
    residues (37,748,736 and 18,874,368 bytes per slot, as
-   collective_bytes(k=2) counts them); launches of K1 and K2.  Prints
+   collective_bytes(k=2) counts them); launches of the three kernels.  Prints
    the launches per op, best-of-5 ms of each op on the mesh and on one
    device (synchronised, warm), the step's peak device memory and
    comm_budget of step 4's hybrid1 N=128 census; with two cards or
@@ -170,7 +190,7 @@
    just after; (c) with two cards or more, the same on a mesh of up to 4
    distinct cards, else a line that it was not run.  Requires (b), and
    (c) where it runs, torch.equal to (a) once gathered; (b)'s op census
-   equal to (a)'s; max_err < 0.01; launches of K1 and K2 in (b); the
+   equal to (a)'s; max_err < 0.01; launches of the three kernels in (b); the
    gathers per tag that the census implies (digit: key switches -
    fast_rotate + decompose; moddown: key switches; rescale: rescales);
    their summed bytes per slot at or below comm_budget of the census
@@ -194,7 +214,8 @@
    (a); the gathers per tag that the census and the bootstraps imply
    (step 9's, and a "raise" gather per bootstrap of (D-1)/D of the [2,
    3, n] base rows); their bytes per slot at or below comm_budget of the
-   census plus the raise gathers' bytes; launches of K1 and K2 in (b).
+   census plus the raise gathers' bytes; launches of the three kernels
+   in (b).
    Prints (a)'s and (b)'s seconds and their ratio, each bootstrap's
    seconds by phase on the mesh beside one device, the gathers and bytes
    per tag, the slots' rows at each level and the slowest slot over a
@@ -209,10 +230,13 @@
    sort, for the mesh a slot's [4, 30, n] class, for the sharded sort
    slot 3's [4, 29, n] and for step 10's sorts and 7b (c) slot 0's ext
    digits), the launches of step 4c's micro table and ntt_bench, and
-   ntt_bench's limb NTTs per second under K1),
-   the card's name and power limit, and as the last line {"ok": true,
-   "device": {...}}.  Any failed check
-   raises, so the script exits non-zero and prints no result.
+   ntt_bench's limb NTTs per second under K1; then the base
+   conversion's time and bound at the hybrid1 N=128 chain's top-level
+   ModUp, every class of step 3, its launches on hybrid1 N=128 and in
+   step 4c's table, and under "paths" its launches on every path and
+   phase that key-switches), the card's name and power limit, and as the last
+   line {"ok": true, "device": {...}}.  Any failed check raises, so the
+   script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -325,6 +349,29 @@ PREV_SRC = Path("_chip/prev/ntt.cu")
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 L2_BYTES = 50 * 2**20              # H100 SXM L2
 ISSUE_PER_CLOCK = 132 * 4 * 32     # SMs x schedulers x lanes: instructions
+IMAD_PER_CLOCK = 132 * 64          # SMs x 32-bit multiply-adds a clock
+# step 3's base conversions (core/cuda_basis.py): on each chain (keyed by
+# its first path), (kind, level, slot, slots) of the classes checked,
+# level None for the chain's top level.  ModUp and ModDown on one card;
+# the mesh's _extend and _phase3 (no pre-scale, one slot's target rows)
+# on the slot of each mesh path whose K1/K2 classes step 3 checks
+BASIS_CLASSES = {
+    "hybrid1 N=128": (("modup", None, None, None),
+                      ("moddown", None, None, None),
+                      ("modup", 3, None, None), ("moddown", 3, None, None),
+                      ("extend", None, 3, SHARD_SLOTS),
+                      ("phase3", None, 3, SHARD_SLOTS)),
+    "mehp24 N=128": (("modup", None, None, None),
+                     ("moddown", None, None, None)),
+    "bitonic N=4": (("extend", None, 0, BOOT_MESH_SLOTS),
+                    ("phase3", None, 0, BOOT_MESH_SLOTS)),
+    "kway k=2 N=16": (("extend", None, 0, BOOT_MESH_SLOTS),
+                      ("phase3", None, 0, BOOT_MESH_SLOTS)),
+    STREAM_PATH: (("extend", None, 0, STREAM_MESH_SLOTS),
+                  ("phase3", None, 0, STREAM_MESH_SLOTS)),
+    MESH_PATH: (("extend", None, 1, MESH_SLOTS),
+                ("phase3", None, 1, MESH_SLOTS)),
+    R18_PATH: (("modup", None, None, None), ("moddown", None, None, None))}
 
 
 def _nvidia_smi() -> str:
@@ -382,6 +429,20 @@ def _kernel_ms(launches, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (per_graph * replays)
+
+
+def _reset_launches():
+    """Zero the launch counters of K1, K2 and the base conversion."""
+    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt
+    cuda_ntt.reset_launch_counts()
+    cuda_basis.base_conv.launches = 0
+
+
+def _launch_counts() -> dict:
+    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt
+    return {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
+            "ntt_inv": cuda_ntt.ntt_inv.launches,
+            "base_conv": cuda_basis.base_conv.launches}
 
 
 def _residues(rng, primes, lead, n, device) -> torch.Tensor:
@@ -578,6 +639,97 @@ def _check_class(lib, prev, P, name, sel, lead, rng, int_rate) -> tuple:
     return row, e_f, e_i
 
 
+def _basis_case(P, kind, l, slot, slots, rng) -> tuple:
+    """The input, base_conv's arguments after it and, per digit, the
+    target rows whose sums the caller does not use, of one class on chain
+    P at limb count l.  ModUp: the q rows' Montgomery coefficients, every
+    digit onto the l + special ext rows, the pre-scale fused and each
+    digit's own rows copied (keep_own); ModDown: both polys' special rows
+    onto the q rows, pre-scaled.  On a mesh slot (row_blocks of `slots`)
+    without pre-scale: _extend, the gathered [l, n] digit residues onto
+    the slot's ext rows, of which torch.where then replaces the slot's q
+    rows in each digit; _phase3, the gathered [2, special, n] residues
+    onto the slot's q rows."""
+    from sorting_fhe_tpu_torch.core.ckks import _LevelTables
+    from sorting_fhe_tpu_torch.parallel.mesh import SlotTables, row_blocks
+    T = _LevelTables(P, l)
+    ndig = -(-l // T.alpha)
+    if kind == "modup":
+        x = _residues(rng, P.q[:l], (1,), P.n, P.device)
+        return x, (T.dig_conv, T.ext_p, T.alpha, T.dig_in, T.q_p, True), \
+            [len(d) for d in T.digits]
+    if kind == "moddown":
+        x = _residues(rng, list(P.p_special), (2,), P.n, P.device)
+        return x, (T.md_conv, T.q_p, T.ksp, T.md_in, T.sp_p, False), [0]
+    (lo, hi), (slo, shi) = (row_blocks(c, slots)[slot]
+                            for c in (P.nq, P.num_special))
+    S = SlotTables(P, T, torch.arange(lo, max(lo, min(hi, l))),
+                   torch.arange(slo, shi), hi - lo, P.device, P.ntt)
+    if kind == "extend":
+        x = _residues(rng, P.q[:l], (1,), P.n, P.device)
+        return x, (S.dig_conv, S.ext_p, S.alpha, None, None, False), \
+            [int(S.in_digit[j].sum()) for j in range(ndig)]
+    x = _residues(rng, list(P.p_special), (2,), P.n, P.device)
+    return x, (S.md_conv, S.q_p, T.ksp, None, None, False), [0]
+
+
+def _check_basis(lib, P, kind, l, slot, slots, rng, imad_rate) -> dict:
+    """One base-conversion class (_basis_case): the kernel bit-equal to
+    base_conv_t, then its time (raw launches into preallocated outputs,
+    _kernel_ms), the plain version's, and the bound: input read and
+    output written once, the conversion table read once, over 3.35 TB/s;
+    the multiply-adds the caller uses (none for the rows it copies or
+    replaces) at two IMADs each (mad.lo.cc, madc.hi.cc) over imad_rate."""
+    from sorting_fhe_tpu_torch.core.cuda_basis import base_conv, base_conv_t
+    x, args, unused = _basis_case(P, kind, l, slot, slots, rng)
+    conv, p, alpha, w, q, keep = args
+    got = base_conv(x, conv, p, alpha, w, q, keep_own=keep)
+    want = base_conv_t(x, conv, p, alpha, w, q, keep_own=keep)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    case = f"{kind} l={l}" + ("" if slot is None else
+                              f" slot {slot} of {slots}")
+    if err:
+        raise AssertionError(f"base_conv {case}: kernel != plain "
+                             f"(max err {err})")
+    del want
+    K, L, n = x.shape
+    R = p.numel()
+    copies = min(64, -(-L2_BYTES // (x.numel() * 4 + got.numel() * 4)))
+    pairs = [(x if i == 0 else x.clone(), torch.empty_like(got))
+             for i in range(copies)]
+
+    def launcher(xi, out):
+        def launch():
+            e = lib.base_conv_launch(
+                xi.data_ptr(), out.data_ptr(), conv.data_ptr(),
+                p.data_ptr(), None if w is None else w.data_ptr(),
+                None if q is None else q.data_ptr(), K, L, alpha, R, n,
+                int(keep), torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"base_conv_launch failed: cudaError {e}")
+        return launch
+    ms = _kernel_ms([launcher(xi, out) for xi, out in pairs])
+    if not torch.equal(pairs[0][1], got):
+        raise AssertionError(f"base_conv {case}: raw launch differs")
+    plain = _time_ms(lambda: base_conv_t(x, *args[:5], keep_own=keep), 2)
+    nbytes = 4 * (x.numel() + got.numel()) + 8 * conv.numel()
+    widths = [min(alpha, L - lo) for lo in range(0, L, alpha)]
+    macs = K * n * sum(d * (R - u) for d, u in zip(widths, unused))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * macs / imad_rate * 1e3
+    bound = max(bytes_ms, ops_ms)
+    return {"case": case, "shape": list(x.shape), "out": list(got.shape),
+            "keep_own": keep, "pre_scale": w is not None,
+            "copies": copies, "ms": ms, "plain_ms": plain, "bytes": nbytes,
+            "multiply_adds": macs,
+            "kernel_multiply_adds": K * n * L * R - (
+                K * n * sum(d * d for d in widths) if keep else 0),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share": bound / ms, "max_abs_err": err}
+
+
 def _cli_config():
     """Step 6's chain: the registry's direct N=128 config at the depth the
     CLI's sign needs, through full_config (so dnum follows the port's
@@ -617,11 +769,13 @@ def _chain_configs() -> list:
                       (R18_PATH, full_config(get_params(R18_ALGO, R18_N)))]
 
 
-def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
+def check_kernels(device, int_rate: float, imad_rate: float,
+                  prev) -> tuple[dict, list, list]:
     """Step 3: bit-equality and times of K1/K2 against the plain versions
-    (and the earlier kernels, when built) on the chain of every path.
-    Returns, per path label, the row of its chain's largest class, and
-    the whole table."""
+    (and the earlier kernels, when built) on the chain of every path, and
+    of the base conversion on the chains of BASIS_CLASSES.  Returns, per
+    path label, the row of its chain's largest class, the whole table,
+    and the base conversion's rows."""
     from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.params import CkksParams
 
@@ -630,9 +784,13 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
     chains = {}           # config -> (its first path, config, paths)
     for label, cfg in _chain_configs():
         chains.setdefault(repr(cfg), (label, cfg, []))[2].append(label)
-    table, largest = [], {}
+    table, largest, basis = [], {}, []
     for label, cfg, paths in chains.values():
         P = CkksParams(cfg, device)
+        for kind, l, slot, slots in BASIS_CLASSES.get(label, ()):
+            row = _check_basis(lib, P, kind, l or P.nq, slot, slots, rng,
+                               imad_rate)
+            basis.append({"chain": label, **row})
         for i, (name, sel, lead) in enumerate(_chain_classes(P, label)):
             row, e_f, e_i = _check_class(lib, prev, P, name, sel, lead, rng,
                                          int_rate)
@@ -654,15 +812,18 @@ def check_kernels(device, int_rate: float, prev) -> tuple[dict, list]:
         del P
         gc.collect()
         torch.cuda.empty_cache()
-    return largest, table
+    return largest, table, basis
 
 
-def kernel_records(largest: dict, table: list, launches: dict,
+def kernel_records(largest: dict, table: list, basis: list, launches: dict,
                    ntt_rate: float) -> list:
     """The JSON record of K1 and K2: time, bound and launches on MAIN at
     top level, and the same for every path under "paths"; the launches
     of the micro table and of ntt_bench, and for K1 ntt_bench's limb
-    transforms per second (`ntt_rate`)."""
+    transforms per second (`ntt_rate`).  Then the base conversion's: its
+    time and bound at the top-level ModUp of the hybrid1 N=128 chain,
+    every class checked under "classes", its launches on the hybrid1
+    N=128 path and in the micro table."""
     recs = []
     for key, tag, label, line in (("ntt_fwd", "fwd", "ntt_fwd (K1)", 119),
                                   ("ntt_inv", "inv", "ntt_inv (K2)", 151)):
@@ -695,6 +856,22 @@ def kernel_records(largest: dict, table: list, launches: dict,
                           R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
                           STREAM_PATH, STREAM_KEYGEN, STREAM_MESH, MESH_PATH,
                           SHARD_PATH, *BOOT_MESH.values()]]})
+    top = basis[0]
+    recs.append({
+        "name": "base_conv", "route": "cuda",
+        "source": "sorting_fhe_tpu_torch/csrc/basis.cu",
+        "replaces": None, "launches": launches[MICRO_CHAIN]["base_conv"],
+        "micro_launches": launches[MICRO_PATH]["base_conv"],
+        "max_abs_err": max(r["max_abs_err"] for r in basis),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "shape": f"{top['chain']} {top['case']}",
+        "classes": basis,
+        "paths": [{"path": p, "launches": launches[p]["base_conv"]}
+                  for p in [p for p, *_ in PATHS] + [
+                      R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
+                      STREAM_PATH, STREAM_MESH, MESH_PATH, SHARD_PATH,
+                      *BOOT_MESH.values()]]})
     return recs
 
 
@@ -707,24 +884,22 @@ def run_path(label, algo, N, trials, device, keep: dict | None = None,
              ring_log: int = RING_LOG) -> tuple[dict, dict, dict]:
     """Step 4 for one path: its sort at ring 2^ring_log with the launch
     counters reset just before and read just after, the gates, and its
-    printed record.  Returns the NTT launches of the run, the peak device
+    printed record.  Returns the kernel launches of the run, the peak device
     memory of each phase (bench.sort_bench's device_mem) and the last
     trial's op census.  `keep` receives sort_bench's `keep` and the record
     ("rec"), for steps 4c, 4d and 10."""
     from sorting_fhe_tpu_torch import bench
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     gc.collect()
     torch.cuda.empty_cache()
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     rec = bench.sort_bench(algo, N, ring_log, trials=trials, device=device,
                            keep=keep)
-    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    launches = _launch_counts()
     brief = {k: rec[k] for k in ("metric", "value", "trials", "max_err",
                                  "gate", "security_logqp", "security_ok",
                                  "device_mem", "resident_gb", "rot_keys",
                                  "phase_s", "op_census", "pt_encode",
-                                 "ntt_launches", "bootstraps", "device")
+                                 "kernel_launches", "bootstraps", "device")
              if k in rec}
     print(f"[sort {label}] " + json.dumps(brief), flush=True)
     peaks = {k: round(v["peak_gb"], 2) for k, v in rec["device_mem"].items()}
@@ -748,9 +923,9 @@ def run_path(label, algo, N, trials, device, keep: dict | None = None,
     if not rec["security_ok"]:
         raise AssertionError(f"{label}: security check failed: {brief}")
     for name, count in launches.items():
-        if count <= 0 or min(t[name] for t in rec["ntt_launches"]) <= 0:
+        if count <= 0 or min(t[name] for t in rec["kernel_launches"]) <= 0:
             raise AssertionError(f"{label} never launched {name} "
-                                 f"(per trial {rec['ntt_launches']})")
+                                 f"(per trial {rec['kernel_launches']})")
     if keep is not None:
         keep["rec"] = rec
     return launches, rec["device_mem"], rec["op_census"][-1]
@@ -762,25 +937,21 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
     bench.ntt_bench(RING_LOG), the launch counters reset just before each
     and read just after.  Requires every value finite and > 0,
     rot_hoisted_1 within MICRO_HOIST_SLACK of rot_composed_1 (at one step
-    the two do the same work), launches of K1 and K2 in the table and of
-    K1 in ntt_bench.  Prints each on a line of its own with the card's
-    name and power limit.  Returns both runs' launches and ntt_bench's
-    rate."""
+    the two do the same work), launches of K1, K2 and the base conversion
+    in the table and of K1 in ntt_bench.  Prints each on a line of its
+    own with the card's name and power limit.  Returns both runs'
+    launches and ntt_bench's rate."""
     from sorting_fhe_tpu_torch import bench
-    from sorting_fhe_tpu_torch.core import cuda_ntt
 
-    def counts():
-        return {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
     ctx = run["ctx"]
     run.clear()
     ctx._pt_cache.clear()      # the sort's plaintexts: the table needs none
     ctx._pt_cache_bytes = 0
     gc.collect()
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     micro = bench.micro_bench(ctx)
-    micro_s, micro_launches = time.perf_counter() - t0, counts()
+    micro_s, micro_launches = time.perf_counter() - t0, _launch_counts()
     print(f"[{MICRO_PATH}] " + json.dumps({
         "card": card, "limbs": ctx.params.nq,
         "special": ctx.params.num_special, "dnum": ctx.cfg.dnum,
@@ -789,10 +960,10 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     ntt = bench.ntt_bench(RING_LOG, device)
-    ntt_s, ntt_launches = time.perf_counter() - t0, counts()
+    ntt_s, ntt_launches = time.perf_counter() - t0, _launch_counts()
     print(f"[{NTT_PATH}] " + json.dumps({
         "card": card, **ntt, "launches": ntt_launches, "s": ntt_s}),
         flush=True)
@@ -816,7 +987,7 @@ def ring18_phase(device, card: str) -> dict:
     """Step 4d: the registry's hybrid1 N=1024 through bench.sort_bench at
     the ring of its registry entry, which must be 2^R18_RING_LOG (depth
     56 does not fit HEStd-128 at 2^17), with step 4's gates (run_path:
-    max_err < 0.01, security_ok, launches of K1 and K2).  Prints the
+    max_err < 0.01, security_ok, launches of the three kernels).  Prints the
     chain, the rotation keys' shape and bytes, the plaintext cache's cap
     and entries after the sort, the card's name and power limit.  Returns
     the run's launches."""
@@ -944,8 +1115,7 @@ def cache_bytes(ctx, device, **holders) -> dict:
 def bootstrap_phase(device) -> dict:
     """Step 4b: BOOT_ROUNDS bootstraps of one BOOT_SLOTS-slot ciphertext
     on BOOT_CHAIN's chain, with the launch counters reset just before and
-    read just after.  Returns the NTT launches of the phase."""
-    from sorting_fhe_tpu_torch.core import cuda_ntt
+    read just after.  Returns the kernel launches of the phase."""
     from sorting_fhe_tpu_torch.core.bootstrap import Bootstrapper
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     from sorting_fhe_tpu_torch.registry import get_params, full_config
@@ -954,7 +1124,7 @@ def bootstrap_phase(device) -> dict:
     algo, N = next((a, n) for lb, a, n, _ in PATHS if lb == BOOT_CHAIN)
     cfg = full_config(get_params(algo, N), ring_dim=1 << RING_LOG,
                       secret_hw=64)
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     t0 = time.perf_counter()
     ctx = CkksContext(cfg, device=device)
     bs = Bootstrapper(ctx, BOOT_SLOTS).setup_keys()
@@ -997,8 +1167,7 @@ def bootstrap_phase(device) -> dict:
               + json.dumps(cache_bytes(ctx, device, bootstrapper=bs)),
               flush=True)
         ct = ctx.level_reduce(out, bs.raise_limbs)
-    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    launches = _launch_counts()
     print(f"[{BOOT_PHASE}] errors {errs}, launches {launches}", flush=True)
     del ctx, bs, ct, out
     if not all(e < BOOT_GATE for e in errs):
@@ -1018,7 +1187,7 @@ def _npz_members(path) -> list:
 def cli_phase(device) -> dict:
     """Step 6: the client here (keys, files, encryption, decryption) and
     the server in a separate process through the CLI, with no secret
-    key.  Returns the NTT launches of the server's sort, as it prints
+    key.  Returns the kernel launches of the server's sort, as it prints
     them."""
     from sorting_fhe_tpu_torch import serial
     from sorting_fhe_tpu_torch.bench import GATE
@@ -1110,8 +1279,8 @@ def cli_phase(device) -> dict:
                                  f"{res.returncode}")
         load = re.search(r"deserialized in ([\d.]+)s", res.stderr)
         sort = re.search(r"sort N=\d+: ([\d.]+)s \(mults=(\d+) rots=(\d+)\)"
-                         r" launches K1=(\d+) K2=(\d+) peak ([\d.]+) GB",
-                         res.stderr)
+                         r" launches K1=(\d+) K2=(\d+) BC=(\d+) peak "
+                         r"([\d.]+) GB", res.stderr)
         if load is None or sort is None:
             raise AssertionError(f"{CLI_PATH}: no timing lines from the "
                                  "server")
@@ -1123,7 +1292,8 @@ def cli_phase(device) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     err = float(np.abs(got - np.sort(v)).max())
     spent = (ctx.params.nq - out.limbs) / ctx.params.comp
-    launches = {"ntt_fwd": int(sort.group(4)), "ntt_inv": int(sort.group(5))}
+    launches = {"ntt_fwd": int(sort.group(4)), "ntt_inv": int(sort.group(5)),
+                "base_conv": int(sort.group(6))}
     print(f"[{CLI_PATH}] " + json.dumps({
         "max_err": err, "log2_err": float(np.log2(max(err, 1e-300))),
         "gate": GATE, "security_logqp": logqp, "security_ok": sec_ok,
@@ -1133,7 +1303,7 @@ def cli_phase(device) -> dict:
         "server_sort_s": float(sort.group(1)),
         "mults": int(sort.group(2)), "rots": int(sort.group(3)),
         "server_launches": launches,
-        "server_sort_peak_gb": float(sort.group(6)), "files_bytes": sizes,
+        "server_sort_peak_gb": float(sort.group(7)), "files_bytes": sizes,
         "write_s": write_s, "output_read_s": read_s}), flush=True)
     if not err < GATE:
         raise AssertionError(f"{CLI_PATH}: max_err {err} not below {GATE}")
@@ -1148,22 +1318,20 @@ def cli_phase(device) -> dict:
 def experiments_phase(device, bench_mem: dict) -> dict:
     """Step 7: experiments.main in this process on the main path's chain.
     Prints its summary and each trial's device memory by phase beside
-    bench.sort_bench's for the same cell (step 4).  Returns the NTT
+    bench.sort_bench's for the same cell (step 4).  Returns the kernel
     launches of the run."""
     from sorting_fhe_tpu_torch import experiments
     from sorting_fhe_tpu_torch.bench import GATE
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="experiments_")
     try:
-        cuda_ntt.reset_launch_counts()
+        _reset_launches()
         (trials,) = experiments.main([
             "--algo", EXP_ALGO, "--sizes", str(EXP_N), "--trials",
             str(EXP_TRIALS), "--ring", str(RING_LOG), "--reuse-context",
             "--outdir", tmp])
-        launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                    "ntt_inv": cuda_ntt.ntt_inv.launches}
+        launches = _launch_counts()
         summary = Path(tmp, f"N{EXP_N}_summary.txt").read_text()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1279,9 +1447,10 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     key-store hook timed (device synchronised) and its caches' bytes read
     when the trial ends; then (c), stream_mesh_phase on that context and
     input, before the context is released.  Requires the 0.01 gate,
-    HEStd-128, launches of K1 and K2 in the sort, more regenerations than
-    keys and the keys' resident bytes within the budget.  Returns the
-    NTT launches of the run, the K1 launches of its keygen and (c)'s."""
+    HEStd-128, launches of K1, K2 and the base conversion in the sort,
+    more regenerations than keys and the keys' resident bytes within the
+    budget.  Returns the kernel launches of the run, the K1 launches of
+    its keygen and (c)'s."""
     from sorting_fhe_tpu_torch import experiments
     from sorting_fhe_tpu_torch.bench import GATE, KEY_BUDGET_ENV
     from sorting_fhe_tpu_torch.core import cuda_ntt
@@ -1334,13 +1503,12 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     experiments._release = read_caches
     experiments.build_sorter = kept_sorter
     try:
-        cuda_ntt.reset_launch_counts()
+        _reset_launches()
         (trials,) = experiments.main([
             "--algo", STREAM_ALGO, "--sizes", str(STREAM_N), "--trials", "1",
             "--ring", str(RING_LOG), "--outdir", tmp,
             *(["--cpu"] if device.type == "cpu" else [])])
-        launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                    "ntt_inv": cuda_ntt.ntt_inv.launches}
+        launches = _launch_counts()
         (t,) = trials
         single = dict(hook)
         hook.update(calls=0, s=0.0, ntt_fwd=0, resident_max=0)
@@ -1358,7 +1526,7 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
             os.environ[KEY_BUDGET_ENV] = env
         shutil.rmtree(tmp, ignore_errors=True)
     gb = 2 ** 30 / 1e9           # the monitor's GiB -> GB
-    sort_k1 = t["ntt_launches"]["ntt_fwd"] - single["ntt_fwd"]
+    sort_k1 = t["kernel_launches"]["ntt_fwd"] - single["ntt_fwd"]
     print(f"[{STREAM_PATH}] " + json.dumps({
         "setup_s": t["setup_s"], "exec_ms": t["exec_ms"],
         "max_err": t["max_err"],
@@ -1368,7 +1536,7 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
         "key_budget_mb": t["key_budget_mb"], "regens": t["key_regens"],
         "regen_hook_calls": single["calls"], "regen_hook_s": single["s"],
         "keygen_ntt_fwd": single["ntt_fwd"],
-        "sort_ntt_launches": t["ntt_launches"],
+        "sort_kernel_launches": t["kernel_launches"],
         "sort_ntt_fwd_without_keygen": sort_k1,
         "resident_key_gb": t["rot_keys_resident_bytes"] / 1e9,
         "resident_at_regen_max_gb": single["resident_max"] / 1e9,
@@ -1384,10 +1552,10 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     if not t["sec_ok"]:
         raise AssertionError(f"{STREAM_PATH}: logQP {t['logqp']} over the "
                              "HEStd-128 limit")
-    if device.type == "cuda" and (sort_k1 <= 0 or
-                                  t["ntt_launches"]["ntt_inv"] <= 0):
+    if device.type == "cuda" and (
+            sort_k1 <= 0 or min(t["kernel_launches"].values()) <= 0):
         raise AssertionError(f"{STREAM_PATH}: the sort launched no kernel: "
-                             f"{t['ntt_launches']}")
+                             f"{t['kernel_launches']}")
     if not t["key_regens"] > t["rot_keys"]:
         raise AssertionError(f"{STREAM_PATH}: {t['key_regens']} "
                              f"regenerations for {t['rot_keys']} keys")
@@ -1409,11 +1577,10 @@ def stream_mesh_phase(device, run: dict, trial: dict, single: dict,
     census, the 0.01 gate, as many regenerations as the single-device
     sort, the store's bytes within the budget at every regeneration and
     at the end, no streamed key in the mesh's own blocks, and launches
-    of K1 and K2.  Prints both runs' seconds and their ratio, the
-    regenerations and the seconds in the hook, and each peak.  Returns
-    the NTT launches of the sharded sort."""
+    of K1, K2 and the base conversion.  Prints both runs' seconds and
+    their ratio, the regenerations and the seconds in the hook, and each
+    peak.  Returns the kernel launches of the sharded sort."""
     from sorting_fhe_tpu_torch import bench
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
     from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
     from sorting_fhe_tpu_torch.utils.testvec import vector_with_min_diff
@@ -1433,11 +1600,10 @@ def stream_mesh_phase(device, run: dict, trial: dict, single: dict,
     sct = sctx.shard(ct)
     regens0 = store.regen_count
     sctx.sync()
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     ctx.op_counts.clear()
     sout, secs = _timed(sort_fn, sct, run["sign"])
-    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    launches = _launch_counts()
     regens = store.regen_count - regens0
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     equal = torch.equal(sout.gather(device).data, out.data)
@@ -1530,12 +1696,12 @@ def mesh_phase(device, census: dict) -> dict:
     the product and its rotations, rescaled and decrypted, within
     MESH_GATE of v*w and np.roll(v*w, -k) (the fresh rotations' error is
     printed, not gated: see _mesh_ops); exactly two gathers per op, of (D-1)/D of the [lq, n] digit
-    residues and of the [2, ksp, n] special residues; launches of K1 and
-    K2.  Prints each op's launches, its best-of-MESH_REPS ms against the
-    single-device op, the step's peak device memory and comm_budget of
-    `census`; on two cards or more, the same ops on a mesh of distinct
-    cards.  Returns the NTT launches of the ops."""
-    from sorting_fhe_tpu_torch.core import cuda_ntt
+    residues and of the [2, ksp, n] special residues; launches of K1, K2
+    and the base conversion.  Prints each op's launches, its
+    best-of-MESH_REPS ms against the single-device op, the step's peak
+    device memory and comm_budget of `census`; on two cards or more, the
+    same ops on a mesh of distinct cards.  Returns the kernel launches of
+    the ops."""
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     from sorting_fhe_tpu_torch.parallel.collective import ShardedKeyswitch
     from sorting_fhe_tpu_torch.parallel.mesh import (make_mesh,
@@ -1569,17 +1735,16 @@ def mesh_phase(device, census: dict) -> dict:
     mesh_ops, single_ops, m = _mesh_ops(sk, ctx, a, b, device)
 
     # the counted run: every op once, launches per op
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     mesh.gather_log.clear()
     outs, per_op = {}, {}
     for name, op in mesh_ops.items():
-        k1, k2 = cuda_ntt.ntt_fwd.launches, cuda_ntt.ntt_inv.launches
+        before = _launch_counts()
         outs[name] = op()
-        per_op[name] = {"ntt_fwd": cuda_ntt.ntt_fwd.launches - k1,
-                        "ntt_inv": cuda_ntt.ntt_inv.launches - k2}
+        per_op[name] = {k: v - before[k]
+                        for k, v in _launch_counts().items()}
     torch.cuda.synchronize()
-    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    launches = _launch_counts()
     log = [(g["tag"], g["bytes_per_slot"]) for g in mesh.gather_log]
     D, n = mesh.size, P.n
     want = {"digit": (D - 1) * P.nq * n * 4 // D,
@@ -1710,11 +1875,11 @@ def sharded_phase(device) -> dict:
     slots on `device`, with the launch counters reset just before (b)
     and read just after; (c) on up to 4 distinct cards where there are
     two or more.  Requires HEStd-128, (b) and (c) torch.equal to (a),
-    the same op census, max_err < GATE, launches of K1 and K2 in (b),
-    the gathers per tag that the census implies and their bytes within
-    comm_budget.  Returns the NTT launches of (b)."""
+    the same op census, max_err < GATE, launches of K1, K2 and the base
+    conversion in (b), the gathers per tag that the census implies and
+    their bytes within comm_budget.  Returns the kernel launches of
+    (b)."""
     from sorting_fhe_tpu_torch.bench import GATE
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     from sorting_fhe_tpu_torch.models.direct_sort import DirectSort
     from sorting_fhe_tpu_torch.parallel.collective import comm_budget
@@ -1747,11 +1912,10 @@ def sharded_phase(device) -> dict:
     out, single_s = _timed(ds.sort_hybrid1, ct, sign)
     census = dict(ctx.op_counts)
     mesh = make_mesh(devices=[device] * SHARD_SLOTS)        # (b)
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     sout, mesh_s, mesh_census, sctx = _sharded_sort(ctx, DirectSort, ct,
                                                     sign, mesh)
-    launches = {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                "ntt_inv": cuda_ntt.ntt_inv.launches}
+    launches = _launch_counts()
     equal = torch.equal(sout.gather(device).data, out.data)
     err = float(np.abs(sctx.decrypt(sout)[:SHARD_N] - np.sort(v)).max())
     gathers = {t: dict(g) for t, g in mesh.gathers.items()}
@@ -1815,10 +1979,9 @@ def _boot_mesh_sort(ctx, algo, N, p, ct, sign, mesh) -> dict:
     """The (algo, N) sort built by bench.build_sorter on shard_context(ctx,
     mesh) with a counting BootstrapHook of its own, the launch counters,
     the op census, the mesh's gathers and the hook's calls reset just
-    before the sort: its output, seconds, census, hook and NTT launches,
-    and the sharded context."""
+    before the sort: its output, seconds, census, hook and kernel
+    launches, and the sharded context."""
     from sorting_fhe_tpu_torch import bench
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.bootstrap import BootstrapHook
     from sorting_fhe_tpu_torch.parallel.evaluator import shard_context
     sctx = shard_context(ctx, mesh)
@@ -1826,15 +1989,13 @@ def _boot_mesh_sort(ctx, algo, N, p, ct, sign, mesh) -> dict:
     sort_fn, _, _ = bench.build_sorter(sctx, algo, N, p, hook=hook)
     sct = sctx.shard(ct)
     sctx.sync()
-    cuda_ntt.reset_launch_counts()
+    _reset_launches()
     ctx.op_counts.clear()
     mesh.clear_gathers()
     hook.calls = []
     out, secs = _timed(sort_fn, sct, sign)
     return {"out": out, "s": secs, "census": dict(ctx.op_counts),
-            "hook": hook, "sctx": sctx,
-            "launches": {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-                         "ntt_inv": cuda_ntt.ntt_inv.launches}}
+            "hook": hook, "sctx": sctx, "launches": _launch_counts()}
 
 
 def boot_mesh_phase(device, label: str, run: dict) -> dict:
@@ -1849,8 +2010,8 @@ def boot_mesh_phase(device, label: str, run: dict) -> dict:
     gate; as many bootstraps as (a), at least one; the gathers per tag
     that the census and the bootstraps imply; their bytes per slot within
     comm_budget of the census plus the raise gathers' own, which
-    comm_budget does not count; launches of K1 and K2 in (b).  Returns
-    the NTT launches of (b)."""
+    comm_budget does not count; launches of K1, K2 and the base
+    conversion in (b).  Returns the kernel launches of (b)."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.parallel.collective import comm_budget
     from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
@@ -1966,6 +2127,7 @@ def main() -> int:
     card = _nvidia_smi()
     clock_mhz = _nvidia_smi_clock_mhz()
     int_rate = ISSUE_PER_CLOCK * clock_mhz * 1e6
+    imad_rate = IMAD_PER_CLOCK * clock_mhz * 1e6
     print(f"card: {card}; max SM clock {clock_mhz} MHz; torch sees "
           f"{torch.cuda.device_count()} device(s): "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -1987,9 +2149,11 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
 
     # 3. kernels vs plain versions on the card, on every path's chain
-    largest, table = check_kernels(device, int_rate, prev)
+    largest, table, basis = check_kernels(device, int_rate, imad_rate, prev)
     for row in table:
         print("[kernel] " + json.dumps(row), flush=True)
+    for row in basis:
+        print("[kernel base_conv] " + json.dumps(row), flush=True)
     print(f"[time] kernels checked at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
@@ -2050,8 +2214,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f}s", flush=True)
 
     # 11. results
-    print(json.dumps({"kernels": kernel_records(largest, table, launches,
-                                                ntt_rate)}), flush=True)
+    print(json.dumps({"kernels": kernel_records(largest, table, basis,
+                                                launches, ntt_rate)}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

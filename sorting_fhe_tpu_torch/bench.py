@@ -7,8 +7,9 @@ generate keys, encrypt one test vector, run the sort `trials` times and
 check the first result against np.sort.  The record has the JAX bench's
 keys plus the peak device memory of each phase (setup, keys, encrypt,
 sort) from torch.cuda.max_memory_allocated, the resident key set, the op
-census, the plaintext encodes and the NTT kernel launches of each trial,
-and the device it ran on.  Every rotation key stays resident unless
+census, the plaintext encodes and the launches of each hand-written
+kernel (K1, K2, the base conversion) in each trial, and the device it ran
+on.  Every rotation key stays resident unless
 SORTING_FHE_KEY_BUDGET_MB sets a budget (key_budget_overrides; then the
 record counts the keys' regenerations).  Bitonic and k-way bootstrap
 mid-sort (core/bootstrap.py, a
@@ -340,6 +341,7 @@ def resident_gb(ctx) -> dict:
 
 # device kernels by class, first match of a substring of the kernel name
 KERNEL_CLASSES = (("ntt", ("chunk_pass", "col_pass")),
+                  ("base conversion", ("base_conv",)),
                   ("copy", ("copy", "Copy")),
                   ("gather", ("gather", "index")),
                   ("int64 element-wise", ("long",)))
@@ -354,12 +356,13 @@ def _kernel_class(name: str) -> str:
 
 def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
     """Device time by kernel name and by class (KERNEL_CLASSES: the NTT
-    kernels; copies and casts; gathers; the remaining kernels on int64
-    tensors, the residue arithmetic of the base conversions, rescale and
-    the other ops) from a finished torch.profiler run, and the device's
-    busy and idle share of the trial's wall time (one stream: kernels do
-    not overlap).  The top 25 names reach the NTT kernels' four entries
-    (two passes each), which a top 15 would cut off."""
+    kernels; the base-conversion kernel; copies and casts; gathers; the
+    remaining kernels on int64 tensors, the residue arithmetic of the key
+    inner product, rescale and the other ops) from a finished
+    torch.profiler run, and the device's busy and idle share of the
+    trial's wall time (one stream: kernels do not overlap).  The top 25
+    names reach the NTT kernels' four entries (two passes each), which a
+    top 15 would cut off."""
     from torch.autograd import DeviceType
     us, count = collections.Counter(), collections.Counter()
     for e in prof.events():
@@ -419,7 +422,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     input ("ct") and its values ("values"), the first trial's output
     ("out"), the sign config ("sign"), the registry's SortParams
     ("params") and the slot count ("slots")."""
-    from .core import cuda_ntt
+    from .core import cuda_basis, cuda_ntt
     from .core.bootstrap import BootstrapHook
     from .core.ckks import CkksContext
     from .registry import get_params, full_config, security_check
@@ -476,7 +479,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     cfg_sign = p.sign_config()
 
     times, census, launches, encodes, bootstraps = [], [], [], [], []
-    kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv)
+    kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv, cuda_basis.base_conv)
     max_err = gate = prof_summary = None
     reset_device_peak(device)
     for t in range(trials):
@@ -545,7 +548,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
            "key_budget_mb": cfg.rot_key_budget_mb,
            "key_regens": ctx.rot_keys.regen_count, "phase_s": secs,
            "op_census": census, "pt_encode": encodes,
-           "ntt_launches": launches,
+           "kernel_launches": launches,
            **({"bootstraps": bootstraps} if boots else {}),
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else str(device))}

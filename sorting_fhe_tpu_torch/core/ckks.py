@@ -11,8 +11,9 @@ Representation: ciphertext components are int32 [k, limbs, n] tensors on
 the context's device, canonical residues in the NTT (evaluation) domain and
 the Montgomery domain — the JAX package's uint32 bits.  Arithmetic is
 exact int64 (core/rns.py), so every op returns the residues the JAX op
-returns.  Both NTTs go through core/cuda_ntt.py: the hand-written kernels
-on a CUDA device, their plain versions on the CPU.
+returns.  Both NTTs go through core/cuda_ntt.py and the key switch's base
+conversions (ModUp, ModDown) through core/cuda_basis.py: the hand-written
+kernels on a CUDA device, their plain versions on the CPU.
 
 Differences from the JAX package, none of which changes a bit: ops are
 plain functions run eagerly (no jit, no pytrees, no trace-state guards),
@@ -50,6 +51,7 @@ from .keystore import KeyStore
 from .interop import keys_to_torch
 from .rns import add_mod, sub_mod, neg_mod, mont_mul
 from .cuda_ntt import ntt_fwd, ntt_inv
+from .cuda_basis import base_conv
 
 SCALE_TOL = 2.0 ** -25
 # the rotation keys' budget in MB for a config that names none
@@ -140,31 +142,32 @@ class _LevelTables:
         # to-Montgomery factor R mod q for every q row
         self.rmod = i64([(1 << 32) % p for p in q[:l]])
 
-        # --- keyswitch digit tables ---
+        # --- keyswitch digit tables (digit j: rows [j alpha, (j+1) alpha)) ---
         alpha = P.alpha
         ndig = -(-l // alpha)
+        self.alpha = alpha
         self.ndig = ndig
         self.digits = [list(range(j * alpha, min((j + 1) * alpha, l)))
                        for j in range(ndig)]
         ext_primes = [q[i] for i in range(l)] + list(sp)
         R = 1 << 32
-        self.dig_in = []      # [dj]: Mont input -> plain [x * (D/d)^-1]_d
-        self.dig_conv = []    # [dj, l+ksp]: plain xhat -> Mont output
+        w_in = []
+        Cw = np.zeros((l, len(ext_primes)), dtype=np.int64)
         for dig in self.digits:
             D = 1
             for i in dig:
                 D *= q[i]
-            w_in = []
-            Cw = np.zeros((len(dig), len(ext_primes)), dtype=np.int64)
-            for a, i in enumerate(dig):
+            for i in dig:
                 d = q[i]
                 dh = D // d
                 w_in.append(nt.mod_inverse(dh % d, d)
                             * nt.mod_inverse(R % d, d) % d)
                 for r, pr in enumerate(ext_primes):
-                    Cw[a, r] = (dh % pr) * (R % pr) % pr
-            self.dig_in.append(i64(w_in))
-            self.dig_conv.append(i64(Cw))
+                    Cw[i, r] = (dh % pr) * (R % pr) % pr
+        # [l]: row i's Mont input -> plain [x * (D/d)^-1]_d of its digit
+        self.dig_in = i64(w_in)
+        # [l, l+ksp]: row i's plain xhat -> Mont output on every ext row
+        self.dig_conv = i64(Cw)
 
         # --- moddown tables (basis P -> q rows) ---
         Pint = P.P_int
@@ -278,22 +281,11 @@ def _kj_decompose(cx, T: _LevelTables):
 
     Returns ext digits stacked [ndig, l+ksp, n] int32 in NTT+Mont domain
     (EvalFastRotationPrecompute equivalent)."""
-    l, n = cx.shape
-    cc = _inv_q(cx, T, 0, l).to(I64)                  # [l, n] Mont coeff
-    pe = T.ext_p.reshape(-1, 1)
-    out = torch.empty((T.ndig, l + T.ksp, n), dtype=I32, device=cx.device)
-    for j, dig in enumerate(T.digits):
-        lo, hi = dig[0], dig[-1] + 1
-        x = cc[lo:hi]                                 # [dj, n] Mont coeff
-        xhat = x * T.dig_in[j].reshape(-1, 1) \
-            % T.q_p[lo:hi].reshape(-1, 1)             # plain [dj, n]
-        Cw = T.dig_conv[j]
-        acc = torch.zeros((l + T.ksp, n), dtype=I64, device=cx.device)
-        for a in range(hi - lo):                      # terms < p: no overflow
-            acc += xhat[a] * Cw[a].reshape(-1, 1) % pe
-        acc %= pe
-        acc[lo:hi] = x      # exact copies for in-digit rows
-        out[j] = acc
+    l = cx.shape[0]
+    cc = _inv_q(cx, T, 0, l)                          # [l, n] Mont coeff
+    # in-digit rows: exact copies of cc (keep_own)
+    out = base_conv(cc[None], T.dig_conv, T.ext_p, T.alpha, T.dig_in,
+                    T.q_p, keep_own=True)[0]
     # one batched forward NTT over all digits' extended bases
     return _fwd_ext(out, T)
 
@@ -306,26 +298,28 @@ def _k_ks_inner(exts, ksk, T: _LevelTables):
     acc = None
     for j in range(exts.shape[0]):
         key = torch.cat([ksk[j, :, :l], ksk[j, :, nq:nq + ksp]], dim=1)
-        term = exts[j][None].to(I64) * key % pe       # < p: sum fits
+        term = exts[j][None].to(I64) * key
+        term %= pe                                    # < p: sum fits
         acc = term if acc is None else acc.add_(term)
-    # sum_j e_j k_j R^-1 = sum_j mont_mul(e_j, k_j)
-    return acc % pe * _col(T.ext_rinv) % pe
+    # sum_j e_j k_j R^-1 = sum_j mont_mul(e_j, k_j), reduced in place: the
+    # [2, l+ksp, n] int64 temporaries set the key switch's memory peak
+    acc %= pe
+    acc *= _col(T.ext_rinv)
+    acc %= pe
+    return acc
 
 
 def _k_moddown(acc, T: _LevelTables):
     """[k, l+ksp, n] NTT Mont -> [k, l, n] int64: (x - lift([x]_P)) * P^-1."""
     l = T.l
-    k, _, n = acc.shape
-    spc = _inv_sp(acc[:, l:, :], T).to(I64)           # [k, ksp, n] Mont coeff
-    xhat = spc * _col(T.md_in) % _col(T.sp_p)         # plain
+    conv = _inv_sp(acc[:, l:, :], T)                  # [k, ksp, n] Mont coeff
+    conv = base_conv(conv, T.md_conv, T.q_p, T.ksp, T.md_in, T.sp_p)[:, 0]
+    conv = _fwd_q(conv, T, l)                         # [k, l, n] NTT Mont
     qp = _col(T.q_p)
-    conv = torch.zeros((k, l, n), dtype=I64, device=acc.device)
-    for a in range(spc.shape[1]):
-        conv += xhat[:, a:a + 1, :] * _col(T.md_conv[a]) % qp
-    conv %= qp
-    convn = _fwd_q(conv, T, l)
-    diff = sub_mod(acc[:, :l, :], convn, qp)
-    return diff * _col(T.md_pinv) % qp
+    diff = sub_mod(acc[:, :l, :], conv, qp)
+    diff *= _col(T.md_pinv)
+    diff %= qp
+    return diff
 
 
 def _kj_permute(data, perm):

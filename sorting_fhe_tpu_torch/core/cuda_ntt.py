@@ -18,9 +18,10 @@ Each call is at most two kernel launches (csrc/ntt.cu: a column pass over
 [R, C] tiles and a chunk pass).  The C side plans them; `launch_plan`
 reads that plan back from the built library.
 
-The kernels are compiled with nvcc for sm_90a into a shared library with
-a plain C interface, at first CUDA use, from this package's sources only,
-into `_build/` beside the package (rebuilt when the source hash changes),
+The kernels, with csrc/basis.cu's base conversion (core/cuda_basis.py),
+are compiled with nvcc for sm_90a into one shared library with a plain C
+interface, at first CUDA use, from this package's sources only, into
+`_build/` beside the package (rebuilt when the sources' hash changes),
 and loaded with ctypes.  Nothing is compiled or loaded at import time.
 """
 
@@ -39,7 +40,7 @@ import torch
 from .ntt import NttContext, ntt_fwd_t, ntt_inv_t
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ntt.cu"
+SOURCES = (_PKG / "csrc" / "ntt.cu", _PKG / "csrc" / "basis.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -66,18 +67,19 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (if the source changed) and load the kernel library."""
+    """Compile (if a source changed) and load the kernel library."""
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libntt_{digest}.so"
+    digest = hashlib.sha256(b"".join(src.read_bytes()
+                                     for src in SOURCES)).hexdigest()[:16]
+    so = BUILD_DIR / f"libkernels_{digest}.so"
     t0 = time.perf_counter()
     report = ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".libntt_{digest}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        tmp = BUILD_DIR / f".libkernels_{digest}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
@@ -94,6 +96,8 @@ def build() -> ctypes.CDLL:
     lib.ntt_inv_launch.restype = ci
     lib.ntt_plan.argtypes = [cll, ci, ctypes.POINTER(cll)]
     lib.ntt_plan.restype = ci
+    lib.base_conv_launch.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.base_conv_launch.restype = ci
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
                       ptxas=report)
     _lib = lib

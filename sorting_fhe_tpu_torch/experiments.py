@@ -25,8 +25,9 @@ SORTING_FHE_KEY_BUDGET_MB, e.g.
         --algo mehp24 --sizes 512 --trials 1
 
 and each trial's record gives the keys, their regenerations and the
-bytes resident after the sort (beside the sort's NTT kernel launches,
-which include the launches of the keys it made).  Where it differs from
+bytes resident after the sort (beside the sort's launches of the
+hand-written kernels, K1, K2 and the base conversion, which include the
+launches of the keys it made).  Where it differs from
 the JAX package's harness: without the variable every key stays
 resident (the JAX arm's default of 5120 MB is sized for the 16 GB v5e;
 see bench.key_budget_overrides), nothing is pre-touched, k-way boots
@@ -50,6 +51,7 @@ import numpy as np
 
 from .bench import (boot_overrides, build_sorter, default_minimal_keys,
                     key_budget_overrides)
+from .core.cuda_basis import base_conv
 from .core.cuda_ntt import ntt_fwd, ntt_inv
 from .registry import get_params, full_config, cheap_config, security_check
 from .utils.memory import MemoryMonitor
@@ -103,13 +105,14 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
     mon.mark("setup")
 
     m0, r0 = ctx.mult_count, ctx.rot_count
-    k0 = [kern.launches for kern in (ntt_fwd, ntt_inv)]
+    kernels = (ntt_fwd, ntt_inv, base_conv)
+    k0 = [kern.launches for kern in kernels]
     t0 = time.time()
     out = sort_fn(ct, p.sign_config())
     ctx.sync()
     exec_ms = (time.time() - t0) * 1000.0
     launches = {kern.__name__: kern.launches - n0
-                for kern, n0 in zip((ntt_fwd, ntt_inv), k0)}
+                for kern, n0 in zip(kernels, k0)}
     got = ctx.decrypt(out)[:N]
     mon.stop()
 
@@ -144,7 +147,7 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
         "max_err": max_err, "avg_err": avg_err,
         "n_big_err": int((err > 0.01).sum()),
         "mults": counts[0], "rots": counts[1],
-        "logqp": logqp, "sec_ok": sec_ok, **keys, "ntt_launches": launches,
+        "logqp": logqp, "sec_ok": sec_ok, **keys, "kernel_launches": launches,
         **mem,
     }
     if verbose:

@@ -40,6 +40,7 @@ import contextlib
 import torch
 
 from ..core.ckks import _col, _i32, _k_mult3
+from ..core.cuda_basis import base_conv
 from ..core.cuda_ntt import ntt_fwd, ntt_inv
 from ..core.rns import add_mod, sub_mod
 from .mesh import (Blocks, Mesh, ShardedCiphertext, all_gather,
@@ -72,30 +73,23 @@ def inv(x: torch.Tensor, S, rows: torch.Tensor) -> torch.Tensor:
 def _phase1(c1: torch.Tensor, S) -> tuple:
     """One slot's digit residues: the inverse NTT (K2) of its q rows of
     c1 [lq, n] and xhat = [x (D_j / q_a)^-1]_{q_a}.  Returns the
-    Montgomery coefficients (int64; the in-digit rows copy them) and xhat
+    Montgomery coefficients (int32; the in-digit rows copy them) and xhat
     (int32, what the digit gather moves)."""
-    cc = inv(c1, S, S.rows_q).to(I64)
+    cc = inv(c1, S, S.rows_q)
     xhat = cc * S.dig_in.reshape(-1, 1) % S.q_p.reshape(-1, 1)
     return cc, xhat.to(I32)
 
 
 def _extend(cc: torch.Tensor, xhat: torch.Tensor, S) -> torch.Tensor:
     """One slot's hoisted digits from the gathered xhat [l, n]: the CRT
-    extension of every digit onto the slot's ext rows, whose in-digit q
-    rows are exact copies of cc chosen by the slot's local digit ids, and
-    the forward NTT (K1).  int32 [ndig, ext rows, n]."""
-    lq, n = cc.shape
-    pe = S.ext_p.reshape(-1, 1)
-    xh = xhat.to(I64)
-    ext = torch.empty((len(S.digit_spans), pe.shape[0], n), dtype=I32,
-                      device=cc.device)
-    for j, (lo, hi) in enumerate(S.digit_spans):
-        acc = torch.zeros((pe.shape[0], n), dtype=I64, device=cc.device)
-        for a in range(lo, hi):                    # terms < p: no overflow
-            acc += xh[a] * S.dig_conv[a].reshape(-1, 1) % pe
-        acc %= pe
-        acc[:lq] = torch.where(S.in_digit[j], cc, acc[:lq])
-        ext[j] = acc
+    extension of every digit onto the slot's ext rows (one base_conv),
+    whose in-digit q rows are exact copies of cc chosen by the slot's
+    local digit ids, and the forward NTT (K1).  int32 [ndig, ext rows,
+    n]."""
+    lq = cc.shape[0]
+    ext = base_conv(xhat[None], S.dig_conv, S.ext_p, S.alpha)[0]
+    for j in range(ext.shape[0]):
+        ext[j, :lq] = torch.where(S.in_digit[j], cc, ext[j, :lq])
     return fwd(ext, S, S.rows_ext)
 
 
@@ -126,11 +120,7 @@ def _phase3(acc_q: torch.Tensor, xs: torch.Tensor, S) -> torch.Tensor:
     if not S.lq:
         return acc_q
     qp = _col(S.q_p)
-    xs = xs.to(I64)
-    conv = torch.zeros_like(acc_q)
-    for a in range(xs.shape[1]):
-        conv += xs[:, a:a + 1] * _col(S.md_conv[a]) % qp
-    conv %= qp
+    conv = base_conv(xs, S.md_conv, S.q_p, xs.shape[1])[:, 0]
     convn = fwd(conv, S, S.rows_q)
     return sub_mod(acc_q, convn, qp) * _col(S.md_pinv) % qp
 

@@ -223,10 +223,10 @@ class SlotTables:
     2^-32 mod p of the ext rows, R mod q (`rmod`), the primes as Python
     ints (`q_host`), the digit decomposition of level l (dig_in per q
     row; dig_conv [l, ext rows], every digit's rows over the slot's
-    columns; the digit spans and, per digit, which of the slot's q rows
-    lie in it) and ModDown (md_in per special row, md_conv [ksp, q rows],
-    md_pinv per q row).  `ntt` is the chain's NttContext on the slot's
-    device: the NTT wrappers take the chain rows."""
+    columns; the digit width `alpha` and, per digit, which of the slot's
+    q rows lie in it) and ModDown (md_in per special row, md_conv [ksp, q
+    rows], md_pinv per q row).  `ntt` is the chain's NttContext on the
+    slot's device: the NTT wrappers take the chain rows."""
 
     def __init__(self, P, T, rq, rs, bq, device, ntt):
         """rq, rs: host int64 indices of the slot's q rows below T.l and of
@@ -250,9 +250,9 @@ class SlotTables:
             on(T.ext_p[e])
         self.q_rinv, self.ext_rinv = on(T.q_rinv[q]), on(T.ext_rinv[e])
         self.rmod = on(T.rmod[q])
-        self.dig_in = on(torch.cat(T.dig_in)[q])
-        self.dig_conv = on(torch.cat(T.dig_conv)[:, e])
-        self.digit_spans = [(d[0], d[-1] + 1) for d in T.digits]
+        self.dig_in = on(T.dig_in[q])
+        self.dig_conv = on(T.dig_conv[:, e])
+        self.alpha = T.alpha
         digit_of = np.empty(l, dtype=np.int64)
         for j, d in enumerate(T.digits):
             digit_of[d] = j

@@ -1,4 +1,5 @@
-"""K1/K2 CUDA kernels against their plain versions, on the card.
+"""K1/K2 and the base-conversion kernel against their plain versions, on
+the card.
 
 Marked `cuda`: they skip without a CUDA device (a CUDA kernel has no CPU
 mode).  This file imports no JAX, so it also runs where only the port is
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from sorting_fhe_tpu_torch.core import cuda_ntt, nt
+from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt, nt
 from sorting_fhe_tpu_torch.core.ntt import NttContext, ntt_fwd_t, ntt_inv_t
 
 torch.set_num_threads(1)   # one thread per test worker: six share the cores
@@ -120,3 +121,87 @@ def test_kernel_rejects_bad_input(device):
         with pytest.raises(ValueError, match="2\\^18"):
             fn(torch.zeros((2, n), dtype=torch.int32, device=device), big,
                rows)
+
+
+# (K, source rows L, digit width, target rows R, logn): the classes of the
+# key switch's base conversions.  ModUp: one poly, every digit onto the
+# level's q + special rows; ModDown: both polys, the special rows onto the
+# q rows.  hybrid1 N=128 (95 q + 24 special, digits of 24) at its top
+# level and at l = 3; MEHP24 N=128 (89 + 30, digits of 30); the ring-2^18
+# chain (115 + 39, digits of 39).
+BASIS_CLASSES = {
+    "hybrid1 modup l=95": (1, 95, 24, 119, 17),
+    "hybrid1 moddown l=95": (2, 24, 24, 95, 17),
+    "hybrid1 modup l=3": (1, 3, 24, 27, 17),
+    "hybrid1 moddown l=3": (2, 24, 24, 3, 17),
+    "mehp24 modup l=89": (1, 89, 30, 119, 17),
+    "mehp24 moddown l=89": (2, 30, 30, 89, 17),
+    "ring18 modup l=115": (1, 115, 39, 154, 18),
+    "ring18 moddown l=115": (2, 39, 39, 115, 18),
+}
+
+
+def _basis_case(device, K, L, R, n, top, rng):
+    """Inputs of a conversion from L source primes onto R target primes
+    (30-bit primes; the kernel needs no NTT-friendly ones, and ring 2^18
+    has too few of 30 bits for 269): random canonical residues, or every
+    residue and constant at p - 1 (`top`), the largest sums the
+    accumulator meets."""
+    primes = nt.find_ntt_primes(30, L + R, 1 << 12)
+    q = torch.tensor(primes[:L], dtype=torch.int64, device=device)
+    p = torch.tensor(primes[L:], dtype=torch.int64, device=device)
+    if top:
+        x = (q - 1).reshape(1, -1, 1).expand(K, L, n)
+        return (x.to(torch.int32).contiguous(),
+                (p - 1).expand(L, R).contiguous(), p, q - 1, q)
+
+    def draw(shape, mod):
+        v = rng.integers(0, 1 << 62, size=shape, dtype=np.uint64)
+        return torch.from_numpy((v % mod).astype(np.int64)).to(device)
+    qs = np.asarray(primes[:L], np.uint64)
+    x = draw((K, L, n), qs.reshape(-1, 1)).to(torch.int32)
+    conv = draw((L, R), np.asarray(primes[L:], np.uint64))
+    return x, conv, p, draw((L,), qs), q
+
+
+@pytest.mark.parametrize("name", list(BASIS_CLASSES))
+def test_base_conv_bit_equal_to_plain(device, name):
+    """The kernel at each class, with the pre-scale (ModUp, ModDown) and
+    without (the mesh, whose slots pre-scale before the gather), and on
+    ModUp's classes with and without keep_own, on random residues and on
+    residues and constants at p - 1: bit-equal to base_conv_t, one launch
+    a call."""
+    K, L, alpha, R, logn = BASIS_CLASSES[name]
+    rng = np.random.default_rng(L * R)
+    for top in (False, True):
+        x, conv, p, w, q = _basis_case(device, K, L, R, 1 << logn, top, rng)
+        for pre in ((w, q), (None, None)):
+            for keep in (False, True) if R >= L else (False,):
+                before = cuda_basis.base_conv.launches
+                got = cuda_basis.base_conv(x, conv, p, alpha, *pre,
+                                           keep_own=keep)
+                assert cuda_basis.base_conv.launches == before + 1
+                want = cuda_basis.base_conv_t(x, conv, p, alpha, *pre,
+                                              keep_own=keep)
+                assert got.shape == (K, -(-L // alpha), R, 1 << logn)
+                assert torch.equal(got, want), (name, top, pre[0] is None,
+                                                keep)
+
+
+def test_base_conv_rejects_bad_input(device):
+    rng = np.random.default_rng(3)
+    x, conv, p, w, q = _basis_case(device, 2, 24, 5, 1 << 8, False, rng)
+    with pytest.raises(TypeError):              # int64 residues
+        cuda_basis.base_conv(x.long(), conv, p, 24, w, q)
+    with pytest.raises(ValueError):             # not contiguous
+        cuda_basis.base_conv(x.transpose(0, 1).contiguous().transpose(0, 1),
+                             conv, p, 24, w, q)
+    with pytest.raises(ValueError):             # a CPU tensor among CUDA ones
+        cuda_basis.base_conv(x.cpu(), conv, p, 24, w, q)
+    with pytest.raises(ValueError):
+        cuda_basis.base_conv(x, conv.cpu(), p, 24, w, q)
+    with pytest.raises(ValueError, match="keep_own"):   # R < L
+        cuda_basis.base_conv(x, conv, p, 24, w, q, keep_own=True)
+    x, conv, p, w, q = _basis_case(device, 1, 41, 3, 1 << 8, False, rng)
+    with pytest.raises(ValueError, match="40"):  # above the register plan
+        cuda_basis.base_conv(x, conv, p, 41, w, q)
