@@ -133,10 +133,18 @@ def build_sorter(ctx, algo: str, N: int, p, minimal_keys: bool = False,
         key_mode = "k-way network + bootstrap"
     elif algo == "mehp24":
         degrees = mehp24_degrees(p)
-        if N > 256:
+        half = ctx.n // 2
+        if N * N > half:
+            # the N x N matrix does not fit the slots: blocks of the
+            # largest width that does (256 at ring 2^17), the ladders' and
+            # the strides' keys made here too
+            block = M24.block_size(half)
+            M24.Mehp24(ctx, block)
+            ctx.gen_rotation_keys(sorted({k % half for k in
+                                          M24.stride_indices(N, block)}))
             sort_fn = lambda ct, sign_cfg: M24.sort_large_array_fg(
-                ctx, ct, N, 256, *degrees)
-            slots = 256 * 256
+                ctx, ct, N, block, *degrees)
+            slots = block * block
         else:
             # the matrix ladders' keys (rotation_indices), made here
             # rather than in the first sort

@@ -35,6 +35,7 @@ the raised primes), which the bootstrap's periodic sine absorbs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import os
 import time
@@ -494,6 +495,9 @@ class CkksContext:
         self.pt_encode_s = 0.0      # wall spent encoding plaintexts
         self.pt_encode_count = 0    # (host iFFT + RNS rows + device NTT)
         self.op_counts = collections.Counter()   # per-op dispatch census
+        self.ks_digits = 0          # digits key-switched, hoisted included
+        self.span_s: dict[str, float] = {}   # seconds by span (span())
+        self._spans_open: list = []          # event pairs not yet read
 
     # ---------------- tables ----------------
     def tables(self, l: int) -> _LevelTables:
@@ -674,6 +678,7 @@ class CkksContext:
     def _relin(self, d, l: int):
         """[3, l, n] -> d[:2] + ModDown(<decompose(d[2]), relin key>)."""
         exts = self._decompose(self._local(l, lambda T, x: x[2], d), l)
+        self.ks_digits += -(-l // self.params.alpha)
         dd = self._keyswitch(exts, "relin", l)
         return self._local(l, lambda T, x, y: add_mod(
             x[:2], y, _col(T.q_p)).to(I32), d, dd)
@@ -681,6 +686,7 @@ class CkksContext:
     def _fast_rotate(self, data, exts, kk, l: int):
         """Automorphism kk (a rotation or "conj") of hoisted digits + key
         inner product + ModDown, and c0's automorphism added."""
+        self.ks_digits += -(-l // self.params.alpha)
         dd = self._keyswitch(exts, kk, l)
 
         def tail(T, x, y):
@@ -1182,10 +1188,43 @@ class CkksContext:
         return self.ct_type(self._mod_raise_data(ct.data, l0), ct.scale, 1,
                             ct.slots)
 
+    def _cards(self) -> list:
+        """The devices this context's ops run on."""
+        return [self.device]
+
     def sync(self):
-        """Wait for the device's queued work (host timing of phases)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the devices' queued work (host timing of phases), then
+        read the spans that work closed into span_s."""
+        for d in self._cards():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        for name, starts, ends in self._spans_open:
+            ms = sum(a.elapsed_time(b) for a, b in zip(starts, ends))
+            self.span_s[name] = (self.span_s.get(name, 0.0)
+                                 + ms / len(starts) / 1e3)
+        self._spans_open.clear()
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """Adds the seconds of the block's work to span_s[name].  On CUDA
+        devices a pair of events on each device's current stream, read at
+        the next sync() (the mean over the devices): a span makes the host
+        wait for nothing.  On the CPU the host clock."""
+        cards = [d for d in self._cards() if d.type == "cuda"]
+        if not cards:
+            t0 = time.perf_counter()
+            yield
+            self.span_s[name] = (self.span_s.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+            return
+
+        def mark(d):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record(torch.cuda.current_stream(d))
+            return e
+        starts = [mark(d) for d in cards]
+        yield
+        self._spans_open.append((name, starts, [mark(d) for d in cards]))
 
     # ---------------- client-side debug ----------------
     def decrypt_debug(self, ct: Ciphertext, count: int | None = None):

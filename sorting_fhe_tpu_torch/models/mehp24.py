@@ -11,7 +11,14 @@ reusing C_kj = 1 - C_jk.  Large arrays split into 256-wide chunks
 (sortLargeArrayFG).
 
 A copy of sorting_fhe_tpu/models/mehp24.py: it drives the context API
-only, so it runs unchanged on the torch port's CkksContext.
+only, so it runs unchanged on the torch port's CkksContext.  What the
+copy adds: the sorts time their stages in the context's spans
+(`ctx.span`, the same calls in the same order inside them):
+mehp24.split, mehp24.compare (replicate, transpose, comparisons),
+mehp24.rank (row and column sums), mehp24.place (indicators times the
+input, column sums) and mehp24.combine; and `block_size` and
+`stride_indices`, which bench.build_sorter uses to make the large-array
+sort's keys at build.
 """
 
 from __future__ import annotations
@@ -84,6 +91,20 @@ def rotation_indices(matrix_size: int) -> list[int]:
         step = sz * (sz - 1) // (1 << (i + 1))
         idx += [step, -step]
     return idx
+
+
+def block_size(slots: int) -> int:
+    """sortLargeArrayFG's block width on a ring of `slots` slots: the
+    largest power of two whose square matrix fits them (256 at ring
+    2^17)."""
+    return 1 << (slots.bit_length() - 1) // 2
+
+
+def stride_indices(total_len: int, sub_len: int) -> list[int]:
+    """The +-i*sub_len rotations with which split_ciphertext and
+    combine_ciphertext move the blocks."""
+    return [sgn * i * sub_len for i in range(1, total_len // sub_len)
+            for sgn in (1, -1)]
 
 
 @dataclass
@@ -254,15 +275,18 @@ def sort_fg(ctx: CkksContext, c: Ciphertext, n: int,
     mehp24_sort.h:42-45).  Sorted values land in the first n slots (row 0)."""
     m = Mehp24(ctx, n)
     cmp = _compare_fn(ctx, m, dg_c, df_c, sign_func, sign_cfg)
-    VR = m.replicate_row(c)
-    VC = m.replicate_column(m.transpose_row(c, True))
-    C = cmp(VR, VC)
-    R = m.sum_rows(C)
-    sub = np.repeat(-np.arange(n, dtype=np.float64) - 0.5, n)
-    Rm = ctx.add(R, ctx.make_plaintext(sub, R.limbs, R.scale, n * n))
-    M = m.indicator_adv(Rm, float(n), dg_i, df_i)
-    S = m.sum_columns(ctx.mult(M, VR), True)
-    return m.transpose_column(S, True)
+    with ctx.span("mehp24.compare"):
+        VR = m.replicate_row(c)
+        VC = m.replicate_column(m.transpose_row(c, True))
+        C = cmp(VR, VC)
+    with ctx.span("mehp24.rank"):
+        R = m.sum_rows(C)
+        sub = np.repeat(-np.arange(n, dtype=np.float64) - 0.5, n)
+        Rm = ctx.add(R, ctx.make_plaintext(sub, R.limbs, R.scale, n * n))
+    with ctx.span("mehp24.place"):
+        M = m.indicator_adv(Rm, float(n), dg_i, df_i)
+        S = m.sum_columns(ctx.mult(M, VR), True)
+        return m.transpose_column(S, True)
 
 
 def sort_fg_multi(ctx: CkksContext, cts: list[Ciphertext], sub_len: int,
@@ -277,48 +301,53 @@ def sort_fg_multi(ctx: CkksContext, cts: list[Ciphertext], sub_len: int,
     num = len(cts)
     total = sub_len * num
 
-    repl_r = [m.replicate_row(c) for c in cts]
-    repl_c = [m.replicate_column(m.transpose_row(c, True)) for c in cts]
+    with ctx.span("mehp24.compare"):
+        repl_r = [m.replicate_row(c) for c in cts]
+        repl_c = [m.replicate_column(m.transpose_row(c, True)) for c in cts]
 
-    Cv: list = [None] * num
-    Ch: list = [None] * num
-    for j in range(num):
-        for k in range(j, num):
-            Cjk = cmp(repl_r[j], repl_c[k])
-            Cv[j] = Cjk if Cv[j] is None else ctx.add(Cv[j], Cjk)
-            if j != k:
-                Ckj = ctx.rsub(1.0, Cjk)
-                Ch[k] = Ckj if Ch[k] is None else ctx.add(Ch[k], Ckj)
+        Cv: list = [None] * num
+        Ch: list = [None] * num
+        for j in range(num):
+            for k in range(j, num):
+                Cjk = cmp(repl_r[j], repl_c[k])
+                Cv[j] = Cjk if Cv[j] is None else ctx.add(Cv[j], Cjk)
+                if j != k:
+                    Ckj = ctx.rsub(1.0, Cjk)
+                    Ch[k] = Ckj if Ch[k] is None else ctx.add(Ch[k], Ckj)
 
-    s: list = [None] * num
-    for j in range(num):
-        svj = m.sum_rows(Cv[j])
-        s[j] = svj
-    for j in range(1, num):
-        shj = m.sum_columns(Ch[j], True)
-        shj = m.transpose_column(shj, True)
-        shj = m.replicate_row(shj)
-        s[j] = ctx.add(s[j], shj)
+    with ctx.span("mehp24.rank"):
+        s: list = [None] * num
+        for j in range(num):
+            svj = m.sum_rows(Cv[j])
+            s[j] = svj
+        for j in range(1, num):
+            shj = m.sum_columns(Ch[j], True)
+            shj = m.transpose_column(shj, True)
+            shj = m.replicate_row(shj)
+            s[j] = ctx.add(s[j], shj)
 
-    sub_sorted: list = [None] * num
-    for j in range(num):
-        # mask rows follow matrix layout: row r gets -(j*sub_len + r) - 0.5
-        sub = np.repeat(-(j * sub_len + np.arange(sub_len, dtype=np.float64))
-                        - 0.5, sub_len)
-        for k in range(num):
-            skm = ctx.add(s[k], ctx.make_plaintext(sub, s[k].limbs,
-                                                   s[k].scale,
-                                                   sub_len * sub_len))
-            ind = ctx.mult(m.indicator_adv(skm, float(total), dg_i, df_i),
-                           repl_r[k])
-            sub_sorted[j] = ind if sub_sorted[j] is None else \
-                ctx.add(sub_sorted[j], ind)
+    with ctx.span("mehp24.place"):
+        sub_sorted: list = [None] * num
+        for j in range(num):
+            # mask rows follow matrix layout: row r gets
+            # -(j*sub_len + r) - 0.5
+            sub = np.repeat(-(j * sub_len
+                              + np.arange(sub_len, dtype=np.float64)) - 0.5,
+                            sub_len)
+            for k in range(num):
+                skm = ctx.add(s[k], ctx.make_plaintext(sub, s[k].limbs,
+                                                       s[k].scale,
+                                                       sub_len * sub_len))
+                ind = ctx.mult(m.indicator_adv(skm, float(total), dg_i,
+                                               df_i), repl_r[k])
+                sub_sorted[j] = ind if sub_sorted[j] is None else \
+                    ctx.add(sub_sorted[j], ind)
 
-    out = []
-    for j in range(num):
-        r = m.sum_columns(sub_sorted[j], True)
-        out.append(m.transpose_column(r, True))
-    return out
+        out = []
+        for j in range(num):
+            r = m.sum_columns(sub_sorted[j], True)
+            out.append(m.transpose_column(r, True))
+        return out
 
 
 def split_ciphertext(ctx: CkksContext, c: Ciphertext, total_len: int,
@@ -353,12 +382,12 @@ def sort_large_array_fg(ctx: CkksContext, c: Ciphertext, total_len: int,
     Needs rotation keys for the +-i*sub_len strides.  SignFunc overload:
     mehp24_sort.h:63-66."""
     half = ctx.n // 2
-    ctx.gen_rotation_keys(sorted({(i * sub_len) % half
-                                  for i in range(1, total_len // sub_len)} |
-                                 {(-i * sub_len) % half
-                                  for i in range(1, total_len // sub_len)}))
-    parts = split_ciphertext(ctx, c, total_len, sub_len)
-    parts = [p.with_slots(sub_len * sub_len) for p in parts]
+    ctx.gen_rotation_keys(sorted({k % half for k in
+                                  stride_indices(total_len, sub_len)}))
+    with ctx.span("mehp24.split"):
+        parts = split_ciphertext(ctx, c, total_len, sub_len)
+        parts = [p.with_slots(sub_len * sub_len) for p in parts]
     sorted_parts = sort_fg_multi(ctx, parts, sub_len, dg_c, df_c, dg_i, df_i,
                                  sign_func, sign_cfg)
-    return combine_ciphertext(ctx, sorted_parts, sub_len)
+    with ctx.span("mehp24.combine"):
+        return combine_ciphertext(ctx, sorted_parts, sub_len)

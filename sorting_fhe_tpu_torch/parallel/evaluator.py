@@ -83,6 +83,9 @@ class ShardedContext(CkksContext):
     pt_encode_s = _shared("pt_encode_s")
     pt_encode_count = _shared("pt_encode_count")
     op_counts = _shared("op_counts")
+    ks_digits = _shared("ks_digits")
+    span_s = _shared("span_s")
+    _spans_open = _shared("_spans_open")
     relin_key = _shared("relin_key")
     conj_key = _shared("conj_key")
 
@@ -220,11 +223,9 @@ class ShardedContext(CkksContext):
             self._raise_slots[l0] = out
         return self._raise_slots[l0]
 
-    def sync(self):
-        """Wait for every slot's device."""
-        for d in dict.fromkeys(self.mesh.devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+    def _cards(self) -> list:
+        """Every slot's device, once each."""
+        return list(dict.fromkeys(self.mesh.devices))
 
     # ---------------- keys ----------------
     def gen_rotation_keys(self, indices: list[int]):

@@ -1,7 +1,8 @@
 """Plaintext mock of the CkksContext op surface.
 
 Copy of sorting_fhe_tpu/utils/plain.py (numpy only), so that this
-package's tests drive its models without the JAX package.
+package's tests drive its models without the JAX package.  It adds
+`span`, the stage timer that this package's MEHP24 sorts call.
 
 Runs any algorithm written against the evaluator API on numpy slot vectors
 (exact arithmetic, no crypto).  The algorithm structure — masks, rotations,
@@ -13,6 +14,8 @@ plus the synthetic-intermediate-state tests of §4.3).
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -53,6 +56,16 @@ class PlainContext:
         self.delta = 2.0 ** 52
         self.mult_count = 0
         self.rot_count = 0
+        self.span_s: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """Host seconds of the block, added to span_s[name] (the
+        context's spans, on the host clock)."""
+        t0 = time.perf_counter()
+        yield
+        self.span_s[name] = self.span_s.get(name, 0.0) + \
+            time.perf_counter() - t0
 
     class _P:
         pass

@@ -89,6 +89,36 @@ def test_sort_fg_n128_jax_bench_degrees_miss_gate():
     assert np.abs(port_out - np.sort(v)).max() > 0.01
 
 
+@pytest.mark.parametrize("N,ring,block", [
+    (128, 1 << 17, None), (256, 1 << 17, None), (512, 1 << 17, 256),
+    (8, 1 << 8, None), (16, 1 << 8, 8)])
+def test_build_sorter_blocks_where_the_matrix_does_not_fit(monkeypatch, N,
+                                                          ring, block):
+    """bench.build_sorter takes sort_fg while the N x N matrix fits the
+    ring's slots, else sort_large_array_fg in blocks of the largest width
+    that fits, its ladders' and strides' keys made at build."""
+    from sorting_fhe_tpu_torch.bench import build_sorter
+    calls, keys = [], set()
+    for name in ("sort_fg", "sort_large_array_fg"):
+        monkeypatch.setattr(TM, name, lambda ctx, ct, n, *rest, _name=name:
+                            calls.append((_name, n, rest)))
+    ctx = TPlain(ring)
+    monkeypatch.setattr(ctx, "gen_rotation_keys",
+                        lambda idx: keys.update(k % (ring // 2) for k in idx))
+    p = treg.get_params("mehp24", N)
+    sort_fn, slots, _ = build_sorter(ctx, "mehp24", N, p)
+    sort_fn(ctx.encrypt(_vals(N, 3), slots=slots), None)
+    degrees = mehp24_degrees(p)
+    if block is None:
+        assert slots == N * N and calls == [("sort_fg", N, degrees)]
+        want = TM.rotation_indices(N)
+    else:
+        assert slots == block * block <= ring // 2 < 4 * slots
+        assert calls == [("sort_large_array_fg", N, (block, *degrees))]
+        want = TM.rotation_indices(block) + TM.stride_indices(N, block)
+    assert keys - {0} == {k % (ring // 2) for k in want} - {0}
+
+
 def test_rotation_indices_match_jax():
     for size in (128, 256, 512):
         assert TM.rotation_indices(size) == JM.rotation_indices(size)
