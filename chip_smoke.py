@@ -5,8 +5,9 @@
 1. Environment: Python/torch/CUDA versions and the card's name and power
    limit (nvidia-smi).  Exits non-zero without a CUDA device: nothing here
    runs on the CPU instead.
-2. Build: compiles the kernels (sorting_fhe_tpu_torch/csrc/ntt.cu, K1/K2,
-   and csrc/basis.cu, the base conversion) with nvcc from this checkout's
+2. Build: compiles the five kernels (sorting_fhe_tpu_torch/csrc/ntt.cu,
+   K1/K2; csrc/basis.cu, the base conversion; csrc/keyswitch.cu, the key
+   inner product and ModDown's tail) with nvcc from this checkout's
    sources and prints the build time and the registers of each kernel.
    When a copy of an earlier version of the NTT kernels sits at
    _chip/prev/ntt.cu (gitignored; e.g. `git show
@@ -64,6 +65,15 @@
    written once over 3.35 TB/s; the multiply-adds whose sums the caller
    uses, at two IMADs each, over 132 SMs x 64 a clock x the SM's
    maximum clock) and share of it, and the plain version's time.
+   Then the key inner product and ModDown's tail (core/cuda_keyswitch.py)
+   at the top level of each benchmark cell's chain (hybrid1 N=128: 4
+   digits of 24 rows over 119 ext rows; mehp24 N=128: 3 of 30; mehp24
+   N=512: 8 of 14) and at one digit (hybrid1 at l = 20), for
+   relinearisation and for the rotation by 1 (the digits read through
+   its automorphism), on random digits and keys: each bit-equal to its
+   plain version; printed are their times (raw launches, as above), their
+   bounds (each input read once and each output written once over 3.35
+   TB/s) and shares of them, and the plain versions' times.
 4. The sorts, in this order, each through bench.sort_bench at ring 2^17,
    HEStd-128, on cuda:0, with the kernel launch counters reset just
    before it and read just after: hybrid1 N=128 (2 trials), mehp24 N=128
@@ -74,7 +84,7 @@
    secret of Hamming weight 64).  Each requires its gate (max_err < 0.01;
    bitonic: its fixture's max error < 1.0 with no slot off by more than
    0.1 on the 0..255 scale), the HEStd-128 security check, launches of
-   K1, K2 and the base conversion in every trial and, for bitonic and
+   the five kernels in every trial and, for bitonic and
    k-way, at least one bootstrap in every trial; it prints its trials,
    op census, plaintext encodes, kernel launches and bootstraps per
    trial, the peak device memory
@@ -89,7 +99,7 @@
    just before and read just after, printed on a line of its own with
    the card's name and power limit.  Requires every value finite and >
    0, rot_hoisted_1 within 1.1x of rot_composed_1 (at one step both do
-   the same work), launches of K1, K2 and the base conversion in the
+   the same work), launches of the five kernels in the
    table and of K1 in ntt_bench.
 4d. The ring-2^18 tier: the registry's hybrid1 N=1024 (depth 56, 115 q
    + 39 special primes, dnum 3, 131072 slots, the 11 minimal rotation
@@ -131,7 +141,7 @@
    with --reuse-context, in this process.  Prints its N128_summary.txt
    and each trial's device memory by phase (utils/memory.py) beside
    sort_bench's for the same cell in step 4; requires max_err < 0.01 in
-   each trial and launches of K1, K2 and the base conversion.
+   each trial and launches of the five kernels.
 7b. Rotation-key streaming with device keygen, on the mehp24 N=512
    chain (depth 51, dnum 8; 41 rotation keys of 0.998 GB).  (a) For
    rotations 1, 32640 and 65280 (= -256, a split stride): the device
@@ -142,9 +152,9 @@
    np.roll.  (b) experiments.main for mehp24 N=512 (sort_large_array_fg,
    one trial, a fresh context) with SORTING_FHE_KEY_BUDGET_MB=5120, which
    holds 5 keys, with the launch counters reset just before and read just
-   after: requires max_err < 0.01, HEStd-128, launches of K1, K2 and
-   the base conversion in the sort, more regenerations than keys and
-   the resident keys within the budget; prints setup seconds and exec
+   after: requires max_err < 0.01, HEStd-128, launches of the five
+   kernels in the sort, more regenerations than keys and the resident
+   keys within the budget; prints setup seconds and exec
    ms, the regenerations and the seconds in the key store's hook
    (synchronised), the K1 launches of the keygen apart from the sort's,
    the device memory per phase, the bytes allocated after the sort and
@@ -157,7 +167,7 @@
    torch.equal to (b)'s output, (b)'s census, the 0.01 gate, as many
    regenerations as (b), the store's bytes within the budget at every
    regeneration of (b) and (c) and at the end, no streamed key's blocks
-   kept by the mesh, and launches of the three kernels; prints both runs'
+   kept by the mesh, and launches of the five kernels; prints both runs'
    seconds and their ratio, the regenerations, the seconds in the hook
    and each peak.
 8. The limb-sharded key switch (sorting_fhe_tpu_torch/parallel/) on a
@@ -174,7 +184,7 @@
    this scale in both paths, is printed); exactly two gathers per op of
    (D-1)/D of the [96, n] digit residues and of the [2, 24, n] special
    residues (37,748,736 and 18,874,368 bytes per slot, as
-   collective_bytes(k=2) counts them); launches of the three kernels.  Prints
+   collective_bytes(k=2) counts them); launches of the five kernels.  Prints
    the launches per op, best-of-5 ms of each op on the mesh and on one
    device (synchronised, warm), the step's peak device memory and
    comm_budget of step 4's hybrid1 N=128 census; with two cards or
@@ -190,7 +200,7 @@
    just after; (c) with two cards or more, the same on a mesh of up to 4
    distinct cards, else a line that it was not run.  Requires (b), and
    (c) where it runs, torch.equal to (a) once gathered; (b)'s op census
-   equal to (a)'s; max_err < 0.01; launches of the three kernels in (b); the
+   equal to (a)'s; max_err < 0.01; launches of the five kernels in (b); the
    gathers per tag that the census implies (digit: key switches -
    fast_rotate + decompose; moddown: key switches; rescale: rescales);
    their summed bytes per slot at or below comm_budget of the census
@@ -214,7 +224,7 @@
    (a); the gathers per tag that the census and the bootstraps imply
    (step 9's, and a "raise" gather per bootstrap of (D-1)/D of the [2,
    3, n] base rows); their bytes per slot at or below comm_budget of the
-   census plus the raise gathers' bytes; launches of the three kernels
+   census plus the raise gathers' bytes; launches of the five kernels
    in (b).
    Prints (a)'s and (b)'s seconds and their ratio, each bootstrap's
    seconds by phase on the mesh beside one device, the gathers and bytes
@@ -234,7 +244,9 @@
    conversion's time and bound at the hybrid1 N=128 chain's top-level
    ModUp, every class of step 3, its launches on hybrid1 N=128 and in
    step 4c's table, and under "paths" its launches on every path and
-   phase that key-switches), the card's name and power limit, and as the last
+   phase that key-switches; the same for the key inner product and
+   ModDown's tail, at the hybrid1 N=128 chain's top level), the card's
+   name and power limit, and as the last
    line {"ok": true, "device": {...}}.  Any failed check raises, so the
    script exits non-zero and prints no result.
 """
@@ -372,6 +384,17 @@ BASIS_CLASSES = {
     MESH_PATH: (("extend", None, 1, MESH_SLOTS),
                 ("phase3", None, 1, MESH_SLOTS)),
     R18_PATH: (("modup", None, None, None), ("moddown", None, None, None))}
+# step 3's key inner product and ModDown tail (core/cuda_keyswitch.py): on
+# each chain (keyed by its first path), (level, key) of the classes
+# checked, level None for the chain's top level, key "relin" (no
+# automorphism) or a rotation index: the top level of each benchmark
+# cell's chain (hybrid1 N=128: 4 digits of 24 rows; mehp24 N=128: 3 of 30;
+# mehp24 N=512: 8 of 14) and one digit (hybrid1 at l = 20)
+KS_CLASSES = {
+    "hybrid1 N=128": ((None, "relin"), (None, 1), (20, "relin"), (20, 1)),
+    "mehp24 N=128": ((None, "relin"), (None, 1)),
+    STREAM_PATH: ((None, "relin"), (None, 1))}
+KS_KERNELS = ("ks_inner", "moddown_tail")
 
 
 def _nvidia_smi() -> str:
@@ -432,17 +455,24 @@ def _kernel_ms(launches, replays: int = 5) -> float:
 
 
 def _reset_launches():
-    """Zero the launch counters of K1, K2 and the base conversion."""
-    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt
+    """Zero the launch counters of K1, K2, the base conversion, the key
+    inner product and ModDown's tail."""
+    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_keyswitch, \
+        cuda_ntt
     cuda_ntt.reset_launch_counts()
     cuda_basis.base_conv.launches = 0
+    cuda_keyswitch.ks_inner.launches = 0
+    cuda_keyswitch.moddown_tail.launches = 0
 
 
 def _launch_counts() -> dict:
-    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt
+    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_keyswitch, \
+        cuda_ntt
     return {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
             "ntt_inv": cuda_ntt.ntt_inv.launches,
-            "base_conv": cuda_basis.base_conv.launches}
+            "base_conv": cuda_basis.base_conv.launches,
+            "ks_inner": cuda_keyswitch.ks_inner.launches,
+            "moddown_tail": cuda_keyswitch.moddown_tail.launches}
 
 
 def _residues(rng, primes, lead, n, device) -> torch.Tensor:
@@ -730,6 +760,100 @@ def _check_basis(lib, P, kind, l, slot, slots, rng, imad_rate) -> dict:
             "share": bound / ms, "max_abs_err": err}
 
 
+def _check_ks(lib, P, l, tag, rng) -> dict:
+    """One class of the key switch's second half on chain P at limb count
+    l: ks_inner of random digits [ndig, l + special, n] with a random key
+    as the context keeps it ([dnum, 2, nq + special, n]), read through
+    the automorphism of rotation `tag` (none for "relin"), and
+    moddown_tail of its q rows with random converted rows, each bit-equal
+    to its plain version; then their times (raw launches into
+    preallocated outputs, _kernel_ms), the plain versions' and the
+    bounds: each input read once and each output written once over 3.35
+    TB/s (for ks_inner the digits, the key's rows of the level, the
+    permutation and the two outputs; for the tail two inputs and one
+    output)."""
+    from sorting_fhe_tpu_torch.core import cuda_keyswitch as ck
+    from sorting_fhe_tpu_torch.core import encoding
+    from sorting_fhe_tpu_torch.core.ckks import _LevelTables
+    T = _LevelTables(P, l)
+    n, E = P.n, l + T.ksp
+    exts = _residues(rng, T.q_host + list(P.p_special), (T.ndig,), n,
+                     P.device)
+    key = _residues(rng, P.all_primes, (P.cfg.dnum, 2), n, P.device)
+    perm = None if tag == "relin" else torch.from_numpy(
+        encoding.automorphism_eval_perm(
+            n, encoding.galois_element_for_rotation(n, tag)).astype(
+                np.int64)).to(P.device)
+    args = (T.ext_p, T.ext_rinv, l, T.nq, perm)
+    q, sp = ck.ks_inner(exts, key, *args)
+    wq, wsp = ck.ks_inner_t(exts, key, *args)
+    conv = _residues(rng, T.q_host, (2,), n, P.device)
+    tail = ck.moddown_tail(q, conv, T.q_p, T.md_pinv)
+    want = ck.moddown_tail_t(q, conv, T.q_p, T.md_pinv)
+    torch.cuda.synchronize()
+    case = f"l={l}, digits {T.ndig} x {T.alpha}, key {tag}"
+    for name, got, ref in (("ks_inner q", q, wq),
+                           ("ks_inner special", sp, wsp),
+                           ("moddown_tail", tail, want)):
+        if not torch.equal(got, ref):
+            err = int((got.long() - ref.long()).abs().max())
+            raise AssertionError(f"{name} {case}: kernel != plain (max err "
+                                 f"{err})")
+    del wq, wsp, want
+    in_bytes = 4 * exts.numel() + 8 * T.ndig * E * n
+    out_bytes = 8 * E * n
+    copies = min(8, -(-L2_BYTES // (in_bytes + out_bytes)))
+    sets = [(exts if i == 0 else exts.clone(), torch.empty_like(q),
+             torch.empty_like(sp)) for i in range(copies)]
+
+    def inner(x, oq, osp):
+        def launch():
+            e = lib.ks_inner_launch(
+                x.data_ptr(), key.data_ptr(), T.ext_p.data_ptr(),
+                T.ext_rinv.data_ptr(), None if perm is None else
+                perm.data_ptr(), oq.data_ptr(), osp.data_ptr(), T.ndig, E,
+                l, T.nq, key.shape[2], n,
+                torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"ks_inner_launch failed: cudaError {e}")
+        return launch
+    ks_ms = _kernel_ms([inner(*t) for t in sets])
+    if not (torch.equal(sets[0][1], q) and torch.equal(sets[0][2], sp)):
+        raise AssertionError(f"ks_inner {case}: raw launch differs")
+    tails = [(q if i == 0 else q.clone(), torch.empty_like(q))
+             for i in range(min(8, -(-L2_BYTES // (12 * q.numel()))))]
+
+    def down(x, out):
+        def launch():
+            e = lib.moddown_tail_launch(
+                x.data_ptr(), conv.data_ptr(), T.q_p.data_ptr(),
+                T.md_pinv.data_ptr(), out.data_ptr(), 2, l, n,
+                torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise RuntimeError(f"moddown_tail_launch failed: cudaError "
+                                   f"{e}")
+        return launch
+    tail_ms = _kernel_ms([down(*t) for t in tails])
+    if not torch.equal(tails[0][1], tail):
+        raise AssertionError(f"moddown_tail {case}: raw launch differs")
+    ks_plain = _time_ms(lambda: ck.ks_inner_t(exts, key, *args), 2)
+    tail_plain = _time_ms(lambda: ck.moddown_tail_t(q, conv, T.q_p,
+                                                    T.md_pinv), 2)
+    ks_bytes = in_bytes + out_bytes + (0 if perm is None else 8 * n)
+    tail_bytes = 12 * q.numel()
+    rows = {}
+    for name, nbytes, ms, plain, runs in (
+            ("ks_inner", ks_bytes, ks_ms, ks_plain, sets),
+            ("moddown_tail", tail_bytes, tail_ms, tail_plain, tails)):
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"case": case, "digits": T.ndig, "ext_rows": E,
+                      "automorphism": perm is not None, "ms": ms,
+                      "plain_ms": plain, "bytes": nbytes, "bound_ms": bound,
+                      "bound_by": "bytes", "share": bound / ms,
+                      "copies": len(runs), "max_abs_err": 0}
+    return rows
+
+
 def _cli_config():
     """Step 6's chain: the registry's direct N=128 config at the depth the
     CLI's sign needs, through full_config (so dnum follows the port's
@@ -770,12 +894,14 @@ def _chain_configs() -> list:
 
 
 def check_kernels(device, int_rate: float, imad_rate: float,
-                  prev) -> tuple[dict, list, list]:
+                  prev) -> tuple[dict, list, list, list]:
     """Step 3: bit-equality and times of K1/K2 against the plain versions
-    (and the earlier kernels, when built) on the chain of every path, and
-    of the base conversion on the chains of BASIS_CLASSES.  Returns, per
-    path label, the row of its chain's largest class, the whole table,
-    and the base conversion's rows."""
+    (and the earlier kernels, when built) on the chain of every path, of
+    the base conversion on the chains of BASIS_CLASSES and of the key
+    inner product and ModDown's tail on those of KS_CLASSES.  Returns,
+    per path label, the row of its chain's largest class, the whole
+    table, the base conversion's rows and the key switch's (one dict of
+    the two kernels' rows per class)."""
     from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.params import CkksParams
 
@@ -784,13 +910,17 @@ def check_kernels(device, int_rate: float, imad_rate: float,
     chains = {}           # config -> (its first path, config, paths)
     for label, cfg in _chain_configs():
         chains.setdefault(repr(cfg), (label, cfg, []))[2].append(label)
-    table, largest, basis = [], {}, []
+    table, largest, basis, keyswitch = [], {}, [], []
     for label, cfg, paths in chains.values():
         P = CkksParams(cfg, device)
         for kind, l, slot, slots in BASIS_CLASSES.get(label, ()):
             row = _check_basis(lib, P, kind, l or P.nq, slot, slots, rng,
                                imad_rate)
             basis.append({"chain": label, **row})
+        for l, tag in KS_CLASSES.get(label, ()):
+            rows = _check_ks(lib, P, l or P.nq, tag, rng)
+            keyswitch.append({k: {"chain": label, **v}
+                              for k, v in rows.items()})
         for i, (name, sel, lead) in enumerate(_chain_classes(P, label)):
             row, e_f, e_i = _check_class(lib, prev, P, name, sel, lead, rng,
                                          int_rate)
@@ -812,18 +942,21 @@ def check_kernels(device, int_rate: float, imad_rate: float,
         del P
         gc.collect()
         torch.cuda.empty_cache()
-    return largest, table, basis
+    return largest, table, basis, keyswitch
 
 
-def kernel_records(largest: dict, table: list, basis: list, launches: dict,
-                   ntt_rate: float) -> list:
+def kernel_records(largest: dict, table: list, basis: list,
+                   keyswitch: list, launches: dict, ntt_rate: float) -> list:
     """The JSON record of K1 and K2: time, bound and launches on MAIN at
     top level, and the same for every path under "paths"; the launches
     of the micro table and of ntt_bench, and for K1 ntt_bench's limb
     transforms per second (`ntt_rate`).  Then the base conversion's: its
     time and bound at the top-level ModUp of the hybrid1 N=128 chain,
     every class checked under "classes", its launches on the hybrid1
-    N=128 path and in the micro table."""
+    N=128 path and in the micro table.  Then the same for the key inner
+    product and ModDown's tail, their time and bound at the hybrid1 N=128
+    chain's top level (relinearisation), and their launches on every path
+    and phase that key-switches."""
     recs = []
     for key, tag, label, line in (("ntt_fwd", "fwd", "ntt_fwd (K1)", 119),
                                   ("ntt_inv", "inv", "ntt_inv (K2)", 151)):
@@ -872,6 +1005,24 @@ def kernel_records(largest: dict, table: list, basis: list, launches: dict,
                       R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
                       STREAM_PATH, STREAM_MESH, MESH_PATH, SHARD_PATH,
                       *BOOT_MESH.values()]]})
+    for name in KS_KERNELS:
+        rows = [r[name] for r in keyswitch]
+        top = rows[0]
+        recs.append({
+            "name": name, "route": "cuda",
+            "source": "sorting_fhe_tpu_torch/csrc/keyswitch.cu",
+            "replaces": None, "launches": launches[MICRO_CHAIN][name],
+            "micro_launches": launches[MICRO_PATH][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "shape": f"{top['chain']} {top['case']}",
+            "classes": rows,
+            "paths": [{"path": p, "launches": launches[p][name]}
+                      for p in [p for p, *_ in PATHS] + [
+                          R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
+                          STREAM_PATH, STREAM_MESH, MESH_PATH, SHARD_PATH,
+                          *BOOT_MESH.values()]]})
     return recs
 
 
@@ -937,7 +1088,7 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
     bench.ntt_bench(RING_LOG), the launch counters reset just before each
     and read just after.  Requires every value finite and > 0,
     rot_hoisted_1 within MICRO_HOIST_SLACK of rot_composed_1 (at one step
-    the two do the same work), launches of K1, K2 and the base conversion
+    the two do the same work), launches of the five kernels
     in the table and of K1 in ntt_bench.  Prints each on a line of its
     own with the card's name and power limit.  Returns both runs'
     launches and ntt_bench's rate."""
@@ -987,7 +1138,7 @@ def ring18_phase(device, card: str) -> dict:
     """Step 4d: the registry's hybrid1 N=1024 through bench.sort_bench at
     the ring of its registry entry, which must be 2^R18_RING_LOG (depth
     56 does not fit HEStd-128 at 2^17), with step 4's gates (run_path:
-    max_err < 0.01, security_ok, launches of the three kernels).  Prints the
+    max_err < 0.01, security_ok, launches of the five kernels).  Prints the
     chain, the rotation keys' shape and bytes, the plaintext cache's cap
     and entries after the sort, the card's name and power limit.  Returns
     the run's launches."""
@@ -1279,8 +1430,8 @@ def cli_phase(device) -> dict:
                                  f"{res.returncode}")
         load = re.search(r"deserialized in ([\d.]+)s", res.stderr)
         sort = re.search(r"sort N=\d+: ([\d.]+)s \(mults=(\d+) rots=(\d+)\)"
-                         r" launches K1=(\d+) K2=(\d+) BC=(\d+) peak "
-                         r"([\d.]+) GB", res.stderr)
+                         r" launches K1=(\d+) K2=(\d+) BC=(\d+) KS=(\d+) "
+                         r"MD=(\d+) peak ([\d.]+) GB", res.stderr)
         if load is None or sort is None:
             raise AssertionError(f"{CLI_PATH}: no timing lines from the "
                                  "server")
@@ -1293,7 +1444,9 @@ def cli_phase(device) -> dict:
     err = float(np.abs(got - np.sort(v)).max())
     spent = (ctx.params.nq - out.limbs) / ctx.params.comp
     launches = {"ntt_fwd": int(sort.group(4)), "ntt_inv": int(sort.group(5)),
-                "base_conv": int(sort.group(6))}
+                "base_conv": int(sort.group(6)),
+                "ks_inner": int(sort.group(7)),
+                "moddown_tail": int(sort.group(8))}
     print(f"[{CLI_PATH}] " + json.dumps({
         "max_err": err, "log2_err": float(np.log2(max(err, 1e-300))),
         "gate": GATE, "security_logqp": logqp, "security_ok": sec_ok,
@@ -1303,7 +1456,7 @@ def cli_phase(device) -> dict:
         "server_sort_s": float(sort.group(1)),
         "mults": int(sort.group(2)), "rots": int(sort.group(3)),
         "server_launches": launches,
-        "server_sort_peak_gb": float(sort.group(7)), "files_bytes": sizes,
+        "server_sort_peak_gb": float(sort.group(9)), "files_bytes": sizes,
         "write_s": write_s, "output_read_s": read_s}), flush=True)
     if not err < GATE:
         raise AssertionError(f"{CLI_PATH}: max_err {err} not below {GATE}")
@@ -1447,7 +1600,7 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     key-store hook timed (device synchronised) and its caches' bytes read
     when the trial ends; then (c), stream_mesh_phase on that context and
     input, before the context is released.  Requires the 0.01 gate,
-    HEStd-128, launches of K1, K2 and the base conversion in the sort,
+    HEStd-128, launches of the five kernels in the sort,
     more regenerations than keys and the keys' resident bytes within the
     budget.  Returns the kernel launches of the run, the K1 launches of
     its keygen and (c)'s."""
@@ -1577,7 +1730,7 @@ def stream_mesh_phase(device, run: dict, trial: dict, single: dict,
     census, the 0.01 gate, as many regenerations as the single-device
     sort, the store's bytes within the budget at every regeneration and
     at the end, no streamed key in the mesh's own blocks, and launches
-    of K1, K2 and the base conversion.  Prints both runs' seconds and
+    of the five kernels.  Prints both runs' seconds and
     their ratio, the regenerations and the seconds in the hook, and each
     peak.  Returns the kernel launches of the sharded sort."""
     from sorting_fhe_tpu_torch import bench
@@ -1696,8 +1849,8 @@ def mesh_phase(device, census: dict) -> dict:
     the product and its rotations, rescaled and decrypted, within
     MESH_GATE of v*w and np.roll(v*w, -k) (the fresh rotations' error is
     printed, not gated: see _mesh_ops); exactly two gathers per op, of (D-1)/D of the [lq, n] digit
-    residues and of the [2, ksp, n] special residues; launches of K1, K2
-    and the base conversion.  Prints each op's launches, its
+    residues and of the [2, ksp, n] special residues; launches of the
+    five kernels.  Prints each op's launches, its
     best-of-MESH_REPS ms against the single-device op, the step's peak
     device memory and comm_budget of `census`; on two cards or more, the
     same ops on a mesh of distinct cards.  Returns the kernel launches of
@@ -1875,8 +2028,8 @@ def sharded_phase(device) -> dict:
     slots on `device`, with the launch counters reset just before (b)
     and read just after; (c) on up to 4 distinct cards where there are
     two or more.  Requires HEStd-128, (b) and (c) torch.equal to (a),
-    the same op census, max_err < GATE, launches of K1, K2 and the base
-    conversion in (b), the gathers per tag that the census implies and
+    the same op census, max_err < GATE, launches of the five kernels in
+    (b), the gathers per tag that the census implies and
     their bytes within comm_budget.  Returns the kernel launches of
     (b)."""
     from sorting_fhe_tpu_torch.bench import GATE
@@ -2010,8 +2163,8 @@ def boot_mesh_phase(device, label: str, run: dict) -> dict:
     gate; as many bootstraps as (a), at least one; the gathers per tag
     that the census and the bootstraps imply; their bytes per slot within
     comm_budget of the census plus the raise gathers' own, which
-    comm_budget does not count; launches of K1, K2 and the base
-    conversion in (b).  Returns the kernel launches of (b)."""
+    comm_budget does not count; launches of the five kernels in (b).
+    Returns the kernel launches of (b)."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.parallel.collective import comm_budget
     from sorting_fhe_tpu_torch.parallel.mesh import make_mesh
@@ -2149,11 +2302,15 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
 
     # 3. kernels vs plain versions on the card, on every path's chain
-    largest, table, basis = check_kernels(device, int_rate, imad_rate, prev)
+    largest, table, basis, keyswitch = check_kernels(device, int_rate,
+                                                     imad_rate, prev)
     for row in table:
         print("[kernel] " + json.dumps(row), flush=True)
     for row in basis:
         print("[kernel base_conv] " + json.dumps(row), flush=True)
+    for rows in keyswitch:
+        for name, row in rows.items():
+            print(f"[kernel {name}] " + json.dumps(row), flush=True)
     print(f"[time] kernels checked at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
@@ -2215,8 +2372,8 @@ def main() -> int:
 
     # 11. results
     print(json.dumps({"kernels": kernel_records(largest, table, basis,
-                                                launches, ntt_rate)}),
-          flush=True)
+                                                keyswitch, launches,
+                                                ntt_rate)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,9 @@ check the first result against np.sort.  The record has the JAX bench's
 keys plus the peak device memory of each phase (setup, keys, encrypt,
 sort) from torch.cuda.max_memory_allocated, the resident key set, the op
 census, the plaintext encodes and the launches of each hand-written
-kernel (K1, K2, the base conversion) in each trial, and the device it ran
-on.  Every rotation key stays resident unless
-SORTING_FHE_KEY_BUDGET_MB sets a budget (key_budget_overrides; then the
+kernel (K1, K2, the base conversion, the key inner product and ModDown's
+tail) in each trial, and the device it ran on.  Every rotation key stays
+resident unless SORTING_FHE_KEY_BUDGET_MB sets a budget (key_budget_overrides; then the
 record counts the keys' regenerations).  Bitonic and k-way bootstrap
 mid-sort (core/bootstrap.py, a
 sparse secret of Hamming weight 64): the bootstrap keys of the sort's
@@ -350,6 +350,7 @@ def resident_gb(ctx) -> dict:
 # device kernels by class, first match of a substring of the kernel name
 KERNEL_CLASSES = (("ntt", ("chunk_pass", "col_pass")),
                   ("base conversion", ("base_conv",)),
+                  ("key switch", ("ks_inner", "moddown_tail")),
                   ("copy", ("copy", "Copy")),
                   ("gather", ("gather", "index")),
                   ("int64 element-wise", ("long",)))
@@ -364,9 +365,10 @@ def _kernel_class(name: str) -> str:
 
 def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
     """Device time by kernel name and by class (KERNEL_CLASSES: the NTT
-    kernels; the base-conversion kernel; copies and casts; gathers; the
-    remaining kernels on int64 tensors, the residue arithmetic of the key
-    inner product, rescale and the other ops) from a finished
+    kernels; the base-conversion kernel; the key inner product and
+    ModDown's tail; copies and casts; gathers; the remaining kernels on
+    int64 tensors, the residue arithmetic of rescale, the products and
+    the other ops) from a finished
     torch.profiler run, and the device's busy and idle share of the
     trial's wall time (one stream: kernels do not overlap).  The top 25
     names reach the NTT kernels' four entries (two passes each), which a
@@ -430,7 +432,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     input ("ct") and its values ("values"), the first trial's output
     ("out"), the sign config ("sign"), the registry's SortParams
     ("params") and the slot count ("slots")."""
-    from .core import cuda_basis, cuda_ntt
+    from .core import cuda_basis, cuda_keyswitch, cuda_ntt
     from .core.bootstrap import BootstrapHook
     from .core.ckks import CkksContext
     from .registry import get_params, full_config, security_check
@@ -487,7 +489,8 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     cfg_sign = p.sign_config()
 
     times, census, launches, encodes, bootstraps = [], [], [], [], []
-    kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv, cuda_basis.base_conv)
+    kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv, cuda_basis.base_conv,
+               cuda_keyswitch.ks_inner, cuda_keyswitch.moddown_tail)
     max_err = gate = prof_summary = None
     reset_device_peak(device)
     for t in range(trials):

@@ -11,9 +11,10 @@ Representation: ciphertext components are int32 [k, limbs, n] tensors on
 the context's device, canonical residues in the NTT (evaluation) domain and
 the Montgomery domain — the JAX package's uint32 bits.  Arithmetic is
 exact int64 (core/rns.py), so every op returns the residues the JAX op
-returns.  Both NTTs go through core/cuda_ntt.py and the key switch's base
-conversions (ModUp, ModDown) through core/cuda_basis.py: the hand-written
-kernels on a CUDA device, their plain versions on the CPU.
+returns.  Both NTTs go through core/cuda_ntt.py, the key switch's base
+conversions (ModUp, ModDown) through core/cuda_basis.py and its key inner
+product and ModDown's tail through core/cuda_keyswitch.py: the
+hand-written kernels on a CUDA device, their plain versions on the CPU.
 
 Differences from the JAX package, none of which changes a bit: ops are
 plain functions run eagerly (no jit, no pytrees, no trace-state guards),
@@ -53,6 +54,7 @@ from .interop import keys_to_torch
 from .rns import add_mod, sub_mod, neg_mod, mont_mul
 from .cuda_ntt import ntt_fwd, ntt_inv
 from .cuda_basis import base_conv
+from .cuda_keyswitch import ks_inner, moddown_tail
 
 SCALE_TOL = 2.0 ** -25
 # the rotation keys' budget in MB for a config that names none
@@ -291,36 +293,23 @@ def _kj_decompose(cx, T: _LevelTables):
     return _fwd_ext(out, T)
 
 
-def _k_ks_inner(exts, ksk, T: _LevelTables):
-    """Inner product of ext digits with the key: int64 [2, l+ksp, n].
-    ksk: the full key [>=ndig, 2, nq+ksp, n]; its rows are selected here."""
-    l, nq, ksp = T.l, T.nq, T.ksp
-    pe = _col(T.ext_p)
-    acc = None
-    for j in range(exts.shape[0]):
-        key = torch.cat([ksk[j, :, :l], ksk[j, :, nq:nq + ksp]], dim=1)
-        term = exts[j][None].to(I64) * key
-        term %= pe                                    # < p: sum fits
-        acc = term if acc is None else acc.add_(term)
-    # sum_j e_j k_j R^-1 = sum_j mont_mul(e_j, k_j), reduced in place: the
-    # [2, l+ksp, n] int64 temporaries set the key switch's memory peak
-    acc %= pe
-    acc *= _col(T.ext_rinv)
-    acc %= pe
-    return acc
-
-
-def _k_moddown(acc, T: _LevelTables):
-    """[k, l+ksp, n] NTT Mont -> [k, l, n] int64: (x - lift([x]_P)) * P^-1."""
-    l = T.l
-    conv = _inv_sp(acc[:, l:, :], T)                  # [k, ksp, n] Mont coeff
+def _k_moddown(acc_q, acc_sp, T: _LevelTables):
+    """ModDown of the inner product's q rows [k, l, n] and special rows
+    [k, ksp, n] (NTT Mont, int32) -> [k, l, n] int32: (x - lift([x]_P))
+    * P^-1."""
+    conv = _inv_sp(acc_sp, T)                         # [k, ksp, n] Mont coeff
     conv = base_conv(conv, T.md_conv, T.q_p, T.ksp, T.md_in, T.sp_p)[:, 0]
-    conv = _fwd_q(conv, T, l)                         # [k, l, n] NTT Mont
-    qp = _col(T.q_p)
-    diff = sub_mod(acc[:, :l, :], conv, qp)
-    diff *= _col(T.md_pinv)
-    diff %= qp
-    return diff
+    conv = _fwd_q(conv, T, T.l)                       # [k, l, n] NTT Mont
+    return moddown_tail(acc_q, conv, T.q_p, T.md_pinv)
+
+
+def _k_ks_moddown(exts, ksk, T: _LevelTables, perm=None):
+    """ModDown(<exts, ksk>), int32 [2, l, n]: the inner product of the ext
+    digits [ndig, l+ksp, n], read through the automorphism `perm` (None:
+    relinearisation), with the key [>=ndig, 2, nq+ksp, n], whose rows the
+    kernel selects, then ModDown."""
+    return _k_moddown(*ks_inner(exts, ksk, T.ext_p, T.ext_rinv, T.l, T.nq,
+                                perm), T)
 
 
 def _kj_permute(data, perm):
@@ -329,7 +318,7 @@ def _kj_permute(data, perm):
 
 def _k_keyswitch(d, exts, ksk, T: _LevelTables):
     """d[:2] + ModDown(<exts, ksk>): the relinearize tail, int32."""
-    dd = _k_moddown(_k_ks_inner(exts, ksk, T), T)
+    dd = _k_ks_moddown(exts, ksk, T)
     return add_mod(d[:2], dd, _col(T.q_p)).to(I32)
 
 
@@ -340,8 +329,7 @@ def _kj_mult_relin(a, b, ksk, T):
 
 def _kj_fast_rotate(data, precomp, ksk, perm, T):
     """Automorphism of hoisted digits + key inner product + ModDown."""
-    exts = _kj_permute(precomp, perm)
-    d = _k_moddown(_k_ks_inner(exts, ksk, T), T)
+    d = _k_ks_moddown(precomp, ksk, T, perm)
     c0 = add_mod(_kj_permute(data[0:1], perm), d[0:1], _col(T.q_p))
     return torch.cat([c0, d[1:2]], dim=0).to(I32)
 
@@ -638,14 +626,12 @@ class CkksContext:
         return _kj_decompose(c1, self.tables(l))
 
     def _keyswitch(self, exts, tag, l: int):
-        """The key switch's second half, int64 [2, l, n]: ModDown of the
+        """The key switch's second half, int32 [2, l, n]: ModDown of the
         inner product of `exts` with the relinearisation key (tag
         "relin"), the conjugation key ("conj") or rotation tag's key, the
-        digits permuted by that automorphism first (not for "relin")."""
-        T = self.tables(l)
-        if tag != "relin":
-            exts = _kj_permute(exts, self._perm(tag))
-        return _k_moddown(_k_ks_inner(exts, self._key(tag), T), T)
+        digits read through that automorphism (not for "relin")."""
+        perm = None if tag == "relin" else self._perm(tag)
+        return _k_ks_moddown(exts, self._key(tag), self.tables(l), perm)
 
     def _mod_raise_data(self, data, l0: int):
         """mod_raise's residues: [k, l0, n] -> [k, nq, n]."""

@@ -18,9 +18,11 @@ Each call is at most two kernel launches (csrc/ntt.cu: a column pass over
 [R, C] tiles and a chunk pass).  The C side plans them; `launch_plan`
 reads that plan back from the built library.
 
-The kernels, with csrc/basis.cu's base conversion (core/cuda_basis.py),
-are compiled with nvcc for sm_90a into one shared library with a plain C
-interface, at first CUDA use, from this package's sources only, into
+The kernels, with csrc/basis.cu's base conversion (core/cuda_basis.py)
+and csrc/keyswitch.cu's key inner product and ModDown tail
+(core/cuda_keyswitch.py), are compiled with nvcc for sm_90a into one
+shared library with a plain C interface, at first CUDA use, from this
+package's sources only, into
 `_build/` beside the package (rebuilt when the sources' hash changes),
 and loaded with ctypes.  Nothing is compiled or loaded at import time.
 """
@@ -40,7 +42,8 @@ import torch
 from .ntt import NttContext, ntt_fwd_t, ntt_inv_t
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "ntt.cu", _PKG / "csrc" / "basis.cu")
+SOURCES = (_PKG / "csrc" / "ntt.cu", _PKG / "csrc" / "basis.cu",
+           _PKG / "csrc" / "keyswitch.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -98,6 +101,10 @@ def build() -> ctypes.CDLL:
     lib.ntt_plan.restype = ci
     lib.base_conv_launch.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.base_conv_launch.restype = ci
+    lib.ks_inner_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.ks_inner_launch.restype = ci
+    lib.moddown_tail_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp]
+    lib.moddown_tail_launch.restype = ci
     build_info.update(path=str(so), seconds=time.perf_counter() - t0,
                       ptxas=report)
     _lib = lib

@@ -22,15 +22,16 @@ fast_rotation_precompute does.
 
 The constants are the context's _LevelTables of the op's limb count,
 sliced by rows (parallel/mesh.SlotTables): the formulas of the
-single-device _kj_decompose, _k_ks_inner and _k_moddown (core/ckks.py),
-so the results equal the single-device ops bit for bit, and the JAX
-ShardedKeyswitch's too (its Shoup forms give the same canonical
-residues).  The NTTs are core/cuda_ntt's with the slot's chain rows: the
-hand-written kernels on a card, the plain versions on the CPU; a slot
-with no rows of a kind launches nothing for them.  The phases take any
-level and ragged blocks; `ShardedKeyswitch`, the JAX module's
-demonstrator, keeps its contract: the full limb count, rows dividing the
-mesh.
+single-device _kj_decompose and _k_ks_moddown (core/ckks.py), whose key
+inner product and ModDown tail are the same functions
+(core/cuda_keyswitch.py), so the results equal the single-device ops bit
+for bit, and the JAX ShardedKeyswitch's too (its Shoup forms give the
+same canonical residues).  The NTTs are core/cuda_ntt's with the slot's
+chain rows: the hand-written kernels on a card, the plain versions on
+the CPU; a slot with no rows of a kind launches nothing for them.  The
+phases take any level and ragged blocks; `ShardedKeyswitch`, the JAX
+module's demonstrator, keeps its contract: the full limb count, rows
+dividing the mesh.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ import torch
 
 from ..core.ckks import _col, _i32, _k_mult3
 from ..core.cuda_basis import base_conv
+from ..core.cuda_keyswitch import ks_inner, moddown_tail
 from ..core.cuda_ntt import ntt_fwd, ntt_inv
-from ..core.rns import add_mod, sub_mod
+from ..core.rns import add_mod
 from .mesh import (Blocks, Mesh, ShardedCiphertext, all_gather,
                    shard_context_tables)
 
@@ -94,35 +96,29 @@ def _extend(cc: torch.Tensor, xhat: torch.Tensor, S) -> torch.Tensor:
 
 
 def _inner(ext: torch.Tensor, key: torch.Tensor, perm, S) -> tuple:
-    """One slot's key switch up to ModDown's gather: the automorphism
-    (perm, rotations only) of its digits, the inner product with its key
-    rows [>= ndig, 2, ext rows, n], the inverse NTT (K2) of its special
-    rows and their xhat.  Returns the inner product's q rows (int64 [2,
+    """One slot's key switch up to ModDown's gather: the inner product of
+    its digits, read through the automorphism perm (rotations only), with
+    its rows of its full-level key block [>= ndig, 2, bq + special rows,
+    n] (core/cuda_keyswitch.ks_inner), the inverse NTT (K2) of its special
+    rows and their xhat.  Returns the inner product's q rows (int32 [2,
     lq, n]) and the special xhat (int32 [2, special rows, n], what the
     ModDown gather moves)."""
-    if perm is not None:
-        ext = ext.index_select(-1, perm)
-    pe = _col(S.ext_p)
-    acc = None
-    for j in range(ext.shape[0]):
-        term = ext[j][None].to(I64) * key[j] % pe
-        acc = term if acc is None else acc.add_(term)
-    acc = acc % pe * _col(S.ext_rinv) % pe
-    spc = inv(acc[:, S.lq:], S, S.rows_sp).to(I64)
+    acc_q, acc_sp = ks_inner(ext, key, S.ext_p, S.ext_rinv, S.lq, S.bq,
+                             perm)
+    spc = inv(acc_sp, S, S.rows_sp).to(I64)
     xs = spc * _col(S.md_in) % _col(S.sp_p)
-    return acc[:, :S.lq], xs.to(I32)
+    return acc_q, xs.to(I32)
 
 
 def _phase3(acc_q: torch.Tensor, xs: torch.Tensor, S) -> torch.Tensor:
     """One slot's ModDown from the gathered special xhat [2, ksp, n]: the
-    conversion onto its q rows, the forward NTT (K1), the subtraction and
-    the multiply by P^-1.  Returns int64 [2, lq, n]."""
+    conversion onto its q rows, the forward NTT (K1), then the subtraction
+    and the multiply by P^-1 (core/cuda_keyswitch.moddown_tail).  Returns
+    int32 [2, lq, n]."""
     if not S.lq:
         return acc_q
-    qp = _col(S.q_p)
     conv = base_conv(xs, S.md_conv, S.q_p, xs.shape[1])[:, 0]
-    convn = fwd(conv, S, S.rows_q)
-    return sub_mod(acc_q, convn, qp) * _col(S.md_pinv) % qp
+    return moddown_tail(acc_q, fwd(conv, S, S.rows_q), S.q_p, S.md_pinv)
 
 
 def decompose(c1s: list, slots: list, mesh: Mesh) -> Blocks:
@@ -142,13 +138,13 @@ def decompose(c1s: list, slots: list, mesh: Mesh) -> Blocks:
 
 def keyswitch(exts: list, keys: list, perms: list, slots: list,
               mesh: Mesh) -> Blocks:
-    """ModDown(<exts, key>) as one int64 [2, lq, n] per slot: the inner
-    product with each slot's full-level key block (cut to the level's
-    rows), the ModDown gather, phase 3."""
+    """ModDown(<exts, key>) as one int32 [2, lq, n] per slot: the inner
+    product with each slot's full-level key block (its rows at the level
+    read in place), the ModDown gather, phase 3."""
     p2 = []
     for ext, key, perm, S in zip(exts, keys, perms, slots):
         with _on(S.device):
-            p2.append(_inner(ext, S.key_rows(key), perm, S))
+            p2.append(_inner(ext, key, perm, S))
     xs = all_gather([x for _, x in p2], mesh, 1, tag="moddown")
     out = Blocks()
     for (acc_q, _), x, S in zip(p2, xs, slots):

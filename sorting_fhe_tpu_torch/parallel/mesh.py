@@ -263,15 +263,6 @@ class SlotTables:
         self.md_conv = on(T.md_conv[:, q])
         self.md_pinv = on(T.md_pinv[q])
 
-    def key_rows(self, block: torch.Tensor) -> torch.Tensor:
-        """The slot's key rows at this level from its full-level key block
-        [dnum, 2, bq + special rows, n]: its q rows below l and its
-        special rows."""
-        if self.lq == self.bq:
-            return block
-        return torch.cat([block[:, :, :self.lq], block[:, :, self.bq:]],
-                         dim=2)
-
 
 class KeyBlocks(Blocks):
     """A [dnum, 2, nq + ksp, n] key as one [dnum, 2, bq + bs, n] block per

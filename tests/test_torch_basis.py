@@ -147,7 +147,10 @@ def test_modup_moddown_equal_the_old_loops(ctx):
         assert got.dtype == I32
         assert torch.equal(got, old_decompose(cx, T, ins, convs)), l
         acc = _residues(rng, P.q[:l] + list(P.p_special), (2,))
-        assert torch.equal(tck._k_moddown(acc, T), old_moddown(acc, T)), l
+        got = tck._k_moddown(acc[:, :l].to(I32).contiguous(),
+                             acc[:, l:].to(I32).contiguous(), T)
+        assert got.dtype == I32
+        assert torch.equal(got, old_moddown(acc, T).to(I32)), l
     assert cuda_basis.base_conv.launches == 0
     assert cuda_ntt._lib is lib         # nothing was built or loaded
     T = ctx.tables(LEVELS[0])
@@ -190,5 +193,5 @@ def test_mesh_extend_phase3_equal_the_old_loops(ctx):
             got = collective._extend(cc, xhat, S)
             assert torch.equal(got, old_extend(cc, xhat, S, spans)), l
             acc_q = _residues(rng, S.q_host, (2,))
-            assert torch.equal(collective._phase3(acc_q, xs, S),
-                               old_phase3(acc_q, xs, S)), l
+            assert torch.equal(collective._phase3(acc_q.to(I32), xs, S),
+                               old_phase3(acc_q, xs, S).to(I32)), l

@@ -205,3 +205,95 @@ def test_base_conv_rejects_bad_input(device):
     x, conv, p, w, q = _basis_case(device, 1, 41, 3, 1 << 8, False, rng)
     with pytest.raises(ValueError, match="40"):  # above the register plan
         cuda_basis.base_conv(x, conv, p, 41, w, q)
+
+
+# (digits, q rows lq, special rows, key's q rows kq, logn): the key
+# switch's second half (core/cuda_keyswitch.py) at the top level of each
+# benchmark cell's chain (hybrid1 N=128: 95 q + 24 special, 4 digits;
+# MEHP24 N=128: 89 + 30, 3 digits; MEHP24 N=512: 105 + 14, 8 digits) and
+# at a level of one digit (hybrid1 at l = 20, the key's rows read from
+# past the level's)
+KS_CLASSES = {
+    "hybrid1 l=95": (4, 95, 24, 95, 17),
+    "mehp24 l=89": (3, 89, 30, 89, 17),
+    "mehp24 N=512 l=105": (8, 105, 14, 105, 17),
+    "hybrid1 l=20": (1, 20, 24, 95, 17),
+}
+
+
+def _ks_case(device, ndig, lq, ks, kq, n, top, rng):
+    """Digits, key (one digit more than used, the rows a level leaves out
+    at 0), ext primes, 2^-32 mod each, and for the tail P^-1 stand-ins:
+    random canonical residues, or every residue at p - 1 (`top`)."""
+    I64 = torch.int64
+    E = lq + ks
+    primes = nt.find_ntt_primes(30, E, 1 << 12)
+    p = torch.tensor(primes, dtype=I64, device=device)
+    rinv = torch.tensor([nt.mod_inverse((1 << 32) % q, q) for q in primes],
+                        dtype=I64, device=device)
+    rows = [primes[r] if r < lq else 0 for r in range(kq)] + primes[lq:]
+    pk = np.asarray([r or 1 for r in rows], np.uint64).reshape(-1, 1)
+
+    def draw(shape, mod):
+        if top:
+            v = np.broadcast_to(mod - 1, shape)
+        else:
+            v = rng.integers(0, 1 << 62, size=shape, dtype=np.uint64) % mod
+        v = np.ascontiguousarray(v, dtype=np.uint32).view(np.int32)
+        return torch.from_numpy(v).to(device)
+    pe = np.asarray(primes, np.uint64).reshape(-1, 1)
+    exts = draw((ndig, E, n), pe)
+    key = draw((ndig + 1, 2, kq + ks, n), pk)
+    return exts, key, p, rinv
+
+
+@pytest.mark.parametrize("name", list(KS_CLASSES))
+def test_ks_inner_moddown_tail_bit_equal_to_plain(device, name):
+    """ks_inner for relinearisation (no permutation), a rotation, the
+    conjugation and a random permutation (which splits the aligned groups
+    of four columns: the kernel's scalar path), on random residues and on
+    residues at p - 1; moddown_tail on its q rows: each bit-equal to its
+    plain version, one launch a call."""
+    from sorting_fhe_tpu_torch.core import cuda_keyswitch as ck
+    from sorting_fhe_tpu_torch.core import encoding
+    ndig, lq, ks, kq, logn = KS_CLASSES[name]
+    n = 1 << logn
+    rng = np.random.default_rng(lq * ndig)
+    perms = [None] + [torch.from_numpy(p.astype(np.int64)).to(device)
+                      for p in (
+        encoding.automorphism_eval_perm(
+            n, encoding.galois_element_for_rotation(n, 3)),
+        encoding.automorphism_eval_perm(n, 2 * n - 1),
+        rng.permutation(n))]
+    for top in (False, True):
+        exts, key, p, rinv = _ks_case(device, ndig, lq, ks, kq, n, top, rng)
+        for i, perm in enumerate(perms):
+            before = ck.ks_inner.launches
+            q, sp = ck.ks_inner(exts, key, p, rinv, lq, kq, perm)
+            assert ck.ks_inner.launches == before + 1
+            wq, wsp = ck.ks_inner_t(exts, key, p, rinv, lq, kq, perm)
+            assert torch.equal(q, wq) and torch.equal(sp, wsp), (top, i)
+        conv = exts[0, :lq].expand(2, lq, n).contiguous()
+        pinv = rinv[:lq].contiguous()
+        before = ck.moddown_tail.launches
+        got = ck.moddown_tail(q, conv, p[:lq].contiguous(), pinv)
+        assert ck.moddown_tail.launches == before + 1
+        assert torch.equal(got, ck.moddown_tail_t(q, conv, p[:lq], pinv))
+
+
+def test_ks_inner_rejects_bad_input(device):
+    from sorting_fhe_tpu_torch.core import cuda_keyswitch as ck
+    rng = np.random.default_rng(4)
+    exts, key, p, rinv = _ks_case(device, 2, 6, 2, 6, 1 << 8, False, rng)
+    with pytest.raises(TypeError):              # int64 residues
+        ck.ks_inner(exts.long(), key, p, rinv, 6, 6)
+    with pytest.raises(ValueError):             # a CPU tensor among CUDA ones
+        ck.ks_inner(exts, key.cpu(), p, rinv, 6, 6)
+    with pytest.raises(ValueError):
+        ck.ks_inner(exts, key, p.cpu(), rinv, 6, 6)
+    with pytest.raises(ValueError):             # not a power of two
+        ck.ks_inner(exts[..., :12].contiguous(), key[..., :12].contiguous(),
+                    p, rinv, 6, 6)
+    q = exts[0, :6].expand(2, 6, 1 << 8)
+    with pytest.raises(ValueError):             # not contiguous
+        ck.moddown_tail(q, q.contiguous(), p[:6].contiguous(), rinv[:6])

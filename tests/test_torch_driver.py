@@ -168,6 +168,6 @@ def test_cli_blind_sort_subprocess(tmp_path, depth):
         assert not ct_out.exists()
         return
     assert res.returncode == 0, res.stderr
-    assert "launches K1=0 K2=0 BC=0" in res.stderr   # the CPU: no kernel
+    assert "launches K1=0 K2=0 BC=0 KS=0 MD=0" in res.stderr   # CPU: none
     got = ctx.decrypt(tserial.load_ciphertext(ct_out, device="cpu"))[:N]
     assert np.abs(got - np.sort(v)).max() < 0.01
