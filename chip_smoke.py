@@ -253,7 +253,6 @@
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import gc
 import json
@@ -272,6 +271,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from sorting_fhe_tpu_torch.core import cuda_lib
 
 RING_LOG = 17
 # (label, algo, N, trials), in the order they run; MAIN is this slice's
@@ -454,25 +455,9 @@ def _kernel_ms(launches, replays: int = 5) -> float:
     return start.elapsed_time(end) / (per_graph * replays)
 
 
-def _reset_launches():
-    """Zero the launch counters of K1, K2, the base conversion, the key
-    inner product and ModDown's tail."""
-    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_keyswitch, \
-        cuda_ntt
-    cuda_ntt.reset_launch_counts()
-    cuda_basis.base_conv.launches = 0
-    cuda_keyswitch.ks_inner.launches = 0
-    cuda_keyswitch.moddown_tail.launches = 0
-
-
 def _launch_counts() -> dict:
-    from sorting_fhe_tpu_torch.core import cuda_basis, cuda_keyswitch, \
-        cuda_ntt
-    return {"ntt_fwd": cuda_ntt.ntt_fwd.launches,
-            "ntt_inv": cuda_ntt.ntt_inv.launches,
-            "base_conv": cuda_basis.base_conv.launches,
-            "ks_inner": cuda_keyswitch.ks_inner.launches,
-            "moddown_tail": cuda_keyswitch.moddown_tail.launches}
+    """Every kernel's launches since the last cuda_lib.reset()."""
+    return {k: cuda_lib.launches[k] for k in cuda_lib.KERNELS}
 
 
 def _residues(rng, primes, lead, n, device) -> torch.Tensor:
@@ -485,12 +470,11 @@ def _residues(rng, primes, lead, n, device) -> torch.Tensor:
 def _start_prev_build():
     """Start nvcc on the earlier kernels' source (PREV_SRC), when a copy
     is there, beside the build of this checkout's kernels."""
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     if not PREV_SRC.exists():
         return None
     so = PREV_SRC.parent / "_build" / "libntt_prev.so"
     so.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [cuda_ntt._nvcc(), *cuda_ntt.NVCC_FLAGS, "-o", str(so),
+    cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(so),
            str(PREV_SRC)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True), so
@@ -504,15 +488,7 @@ def _load_prev(started):
     _, err = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc of {PREV_SRC} failed:\n{err}")
-    lib = ctypes.CDLL(str(so))
-    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ntt_fwd_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, cll, ci,
-                                   vp]
-    lib.ntt_fwd_launch.restype = ci
-    lib.ntt_inv_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                   cll, ci, vp]
-    lib.ntt_inv_launch.restype = ci
-    return lib
+    return cuda_lib.load(so)
 
 
 def _launches(lib, fwd: bool, pairs, tabs, rows) -> list:
@@ -530,7 +506,8 @@ def _launches(lib, fwd: bool, pairs, tabs, rows) -> list:
         def launch():
             err = fn(x.data_ptr(), out.data_ptr(), rows.data_ptr(),
                      tabs.p.data_ptr(), *(t.data_ptr() for t in tables),
-                     *cuda_ntt._dims(x, tabs))
+                     *cuda_ntt._dims(x, tabs),
+                     torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{fn.__name__} failed: cudaError {err}")
         return launch
@@ -902,11 +879,10 @@ def check_kernels(device, int_rate: float, imad_rate: float,
     per path label, the row of its chain's largest class, the whole
     table, the base conversion's rows and the key switch's (one dict of
     the two kernels' rows per class)."""
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.params import CkksParams
 
     rng = np.random.default_rng(17)
-    lib = cuda_ntt.build()
+    lib = cuda_lib.build()
     chains = {}           # config -> (its first path, config, paths)
     for label, cfg in _chain_configs():
         chains.setdefault(repr(cfg), (label, cfg, []))[2].append(label)
@@ -1042,7 +1018,7 @@ def run_path(label, algo, N, trials, device, keep: dict | None = None,
     from sorting_fhe_tpu_torch import bench
     gc.collect()
     torch.cuda.empty_cache()
-    _reset_launches()
+    cuda_lib.reset()
     rec = bench.sort_bench(algo, N, ring_log, trials=trials, device=device,
                            keep=keep)
     launches = _launch_counts()
@@ -1099,7 +1075,7 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
     ctx._pt_cache.clear()      # the sort's plaintexts: the table needs none
     ctx._pt_cache_bytes = 0
     gc.collect()
-    _reset_launches()
+    cuda_lib.reset()
     t0 = time.perf_counter()
     micro = bench.micro_bench(ctx)
     micro_s, micro_launches = time.perf_counter() - t0, _launch_counts()
@@ -1111,7 +1087,7 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
-    _reset_launches()
+    cuda_lib.reset()
     t0 = time.perf_counter()
     ntt = bench.ntt_bench(RING_LOG, device)
     ntt_s, ntt_launches = time.perf_counter() - t0, _launch_counts()
@@ -1275,7 +1251,7 @@ def bootstrap_phase(device) -> dict:
     algo, N = next((a, n) for lb, a, n, _ in PATHS if lb == BOOT_CHAIN)
     cfg = full_config(get_params(algo, N), ring_dim=1 << RING_LOG,
                       secret_hw=64)
-    _reset_launches()
+    cuda_lib.reset()
     t0 = time.perf_counter()
     ctx = CkksContext(cfg, device=device)
     bs = Bootstrapper(ctx, BOOT_SLOTS).setup_keys()
@@ -1342,7 +1318,6 @@ def cli_phase(device) -> dict:
     them."""
     from sorting_fhe_tpu_torch import serial
     from sorting_fhe_tpu_torch.bench import GATE
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     from sorting_fhe_tpu_torch.core.host_poly import sample_ternary
     from sorting_fhe_tpu_torch.models.direct_sort import DIRECT_SORT_ROTATIONS
@@ -1353,7 +1328,7 @@ def cli_phase(device) -> dict:
     torch.cuda.empty_cache()
     # the client's secret comes from its seed: one the server cannot know
     cfg = dataclasses.replace(_cli_config(), seed=secrets.randbits(63))
-    cuda_ntt.reset_launch_counts()
+    cuda_lib.reset()
     t0 = time.perf_counter()
     ctx = CkksContext(cfg, device=device)
     ctx.gen_rotation_keys(DIRECT_SORT_ROTATIONS[CLI_N])
@@ -1364,8 +1339,7 @@ def cli_phase(device) -> dict:
           f"{cfg.mult_depth}, security logQP {logqp} <= {limit}: {sec_ok}; "
           f"{len(ctx.rot_keys)} rotation keys + relin "
           f"({key_bytes / 1e9:.3f} GB) in {time.perf_counter() - t0:.3f}s, "
-          f"client launches K1={cuda_ntt.ntt_fwd.launches} "
-          f"K2={cuda_ntt.ntt_inv.launches}", flush=True)
+          f"client launches {_launch_counts()}", flush=True)
     tmp = tempfile.mkdtemp(prefix="cli_blind_sort_")
     try:
         print(f"[{CLI_PATH}] {tmp}: {shutil.disk_usage(tmp).free / 1e9:.2f}"
@@ -1430,8 +1404,8 @@ def cli_phase(device) -> dict:
                                  f"{res.returncode}")
         load = re.search(r"deserialized in ([\d.]+)s", res.stderr)
         sort = re.search(r"sort N=\d+: ([\d.]+)s \(mults=(\d+) rots=(\d+)\)"
-                         r" launches K1=(\d+) K2=(\d+) BC=(\d+) KS=(\d+) "
-                         r"MD=(\d+) peak ([\d.]+) GB", res.stderr)
+                         r" launches ((?:\w+=\d+ )+)peak ([\d.]+) GB",
+                         res.stderr)
         if load is None or sort is None:
             raise AssertionError(f"{CLI_PATH}: no timing lines from the "
                                  "server")
@@ -1443,10 +1417,8 @@ def cli_phase(device) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     err = float(np.abs(got - np.sort(v)).max())
     spent = (ctx.params.nq - out.limbs) / ctx.params.comp
-    launches = {"ntt_fwd": int(sort.group(4)), "ntt_inv": int(sort.group(5)),
-                "base_conv": int(sort.group(6)),
-                "ks_inner": int(sort.group(7)),
-                "moddown_tail": int(sort.group(8))}
+    launches = {k: int(c) for k, c in re.findall(r"(\w+)=(\d+)",
+                                                  sort.group(4))}
     print(f"[{CLI_PATH}] " + json.dumps({
         "max_err": err, "log2_err": float(np.log2(max(err, 1e-300))),
         "gate": GATE, "security_logqp": logqp, "security_ok": sec_ok,
@@ -1456,7 +1428,7 @@ def cli_phase(device) -> dict:
         "server_sort_s": float(sort.group(1)),
         "mults": int(sort.group(2)), "rots": int(sort.group(3)),
         "server_launches": launches,
-        "server_sort_peak_gb": float(sort.group(9)), "files_bytes": sizes,
+        "server_sort_peak_gb": float(sort.group(5)), "files_bytes": sizes,
         "write_s": write_s, "output_read_s": read_s}), flush=True)
     if not err < GATE:
         raise AssertionError(f"{CLI_PATH}: max_err {err} not below {GATE}")
@@ -1479,7 +1451,7 @@ def experiments_phase(device, bench_mem: dict) -> dict:
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="experiments_")
     try:
-        _reset_launches()
+        cuda_lib.reset()
         (trials,) = experiments.main([
             "--algo", EXP_ALGO, "--sizes", str(EXP_N), "--trials",
             str(EXP_TRIALS), "--ring", str(RING_LOG), "--reuse-context",
@@ -1532,7 +1504,7 @@ def keygen_phase(device):
     uniform halves); the device keygen's and the host keygen's seconds
     per key; a fresh ciphertext rotated with the streamed key and with
     the host key must both decrypt within STREAM_ROT_GATE of np.roll."""
-    from sorting_fhe_tpu_torch.core import cuda_ntt, encoding
+    from sorting_fhe_tpu_torch.core import encoding
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     gc.collect()
     torch.cuda.empty_cache()
@@ -1551,10 +1523,10 @@ def keygen_phase(device):
     rows, k1 = [], 0
     for k in (r % slots for r in STREAM_ROTS):
         g = encoding.galois_element_for_rotation(ctx.n, k)
-        n0 = cuda_ntt.ntt_fwd.launches
+        n0 = cuda_lib.launches["ntt_fwd"]
         first, dev_s = _timed(ctx.keygen.gen_rotation_key_dev, g)
         again, dev2_s = _timed(ctx.keygen.gen_rotation_key_dev, g)
-        k1 += cuda_ntt.ntt_fwd.launches - n0
+        k1 += cuda_lib.launches["ntt_fwd"] - n0
         seeded = other.keygen.gen_rotation_key_dev(g)
         host, host_s = _timed(ctx.keygen.gen_rotation_key, g)
         if not torch.equal(first, again):
@@ -1606,7 +1578,6 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     its keygen and (c)'s."""
     from sorting_fhe_tpu_torch import experiments
     from sorting_fhe_tpu_torch.bench import GATE, KEY_BUDGET_ENV
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     from sorting_fhe_tpu_torch.core.ckks import CkksContext
     gc.collect()
     torch.cuda.empty_cache()
@@ -1627,11 +1598,11 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
             raise AssertionError(f"{STREAM_PATH}: at a regeneration the "
                                  f"store holds {held} B (budget {budget})"
                                  " or the mesh keeps a streamed key")
-        n0 = cuda_ntt.ntt_fwd.launches
+        n0 = cuda_lib.launches["ntt_fwd"]
         key, dt = _timed(regen, ctx, kk)
         hook["calls"] += 1
         hook["s"] += dt
-        hook["ntt_fwd"] += cuda_ntt.ntt_fwd.launches - n0
+        hook["ntt_fwd"] += cuda_lib.launches["ntt_fwd"] - n0
         return key
 
     def kept_sorter(ctx, algo, N, p, **kw):
@@ -1656,7 +1627,7 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     experiments._release = read_caches
     experiments.build_sorter = kept_sorter
     try:
-        _reset_launches()
+        cuda_lib.reset()
         (trials,) = experiments.main([
             "--algo", STREAM_ALGO, "--sizes", str(STREAM_N), "--trials", "1",
             "--ring", str(RING_LOG), "--outdir", tmp,
@@ -1753,7 +1724,7 @@ def stream_mesh_phase(device, run: dict, trial: dict, single: dict,
     sct = sctx.shard(ct)
     regens0 = store.regen_count
     sctx.sync()
-    _reset_launches()
+    cuda_lib.reset()
     ctx.op_counts.clear()
     sout, secs = _timed(sort_fn, sct, run["sign"])
     launches = _launch_counts()
@@ -1822,15 +1793,15 @@ def _mesh_ops(sk, ctx, a, b, device) -> tuple[dict, dict, tuple]:
     gathered) that the "rotate product k" ops rotate.  Those rotations
     carry the decrypt gate: at scale 2^27 a fresh ciphertext's rotation
     keeps ModDown's rounding error, which a rescale divides by q."""
-    from sorting_fhe_tpu_torch.core.ckks import _kj_mult_relin
+    from sorting_fhe_tpu_torch.core.ckks import _k_mult3
     from sorting_fhe_tpu_torch.parallel.mesh import shard_ciphertext
     sa, sb = shard_ciphertext(a, sk.mesh), shard_ciphertext(b, sk.mesh)
     sm = sk.mult_relin(sa, sb)
     m = sm.gather(device)
-    T = ctx.tables(ctx.params.nq)
+    T = ctx.tables(a.limbs)
     mesh = {"mult_relin": lambda: sk.mult_relin(sa, sb).gather(device).data}
-    single = {"mult_relin": lambda: _kj_mult_relin(a.data, b.data,
-                                                   ctx.relin_key, T)}
+    single = {"mult_relin": lambda: ctx._relin(_k_mult3(
+        a.data, b.data, T.q_p, T.q_rinv), a.limbs)}
     for k in MESH_ROTS:
         mesh[f"rotate {k}"] = lambda k=k: sk.rotate(sa, k).gather(device).data
         single[f"rotate {k}"] = lambda k=k: ctx.rotate(a, k).data
@@ -1888,7 +1859,7 @@ def mesh_phase(device, census: dict) -> dict:
     mesh_ops, single_ops, m = _mesh_ops(sk, ctx, a, b, device)
 
     # the counted run: every op once, launches per op
-    _reset_launches()
+    cuda_lib.reset()
     mesh.gather_log.clear()
     outs, per_op = {}, {}
     for name, op in mesh_ops.items():
@@ -2065,7 +2036,7 @@ def sharded_phase(device) -> dict:
     out, single_s = _timed(ds.sort_hybrid1, ct, sign)
     census = dict(ctx.op_counts)
     mesh = make_mesh(devices=[device] * SHARD_SLOTS)        # (b)
-    _reset_launches()
+    cuda_lib.reset()
     sout, mesh_s, mesh_census, sctx = _sharded_sort(ctx, DirectSort, ct,
                                                     sign, mesh)
     launches = _launch_counts()
@@ -2142,7 +2113,7 @@ def _boot_mesh_sort(ctx, algo, N, p, ct, sign, mesh) -> dict:
     sort_fn, _, _ = bench.build_sorter(sctx, algo, N, p, hook=hook)
     sct = sctx.shard(ct)
     sctx.sync()
-    _reset_launches()
+    cuda_lib.reset()
     ctx.op_counts.clear()
     mesh.clear_gathers()
     hook.calls = []
@@ -2286,18 +2257,17 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     device = torch.device("cuda:0")
 
-    from sorting_fhe_tpu_torch.core import cuda_ntt
     t_start = time.perf_counter()
 
     # 2. build (the earlier kernels' nvcc runs alongside)
     t0 = time.perf_counter()
     started = _start_prev_build()
-    cuda_ntt.build()
+    cuda_lib.build()
     prev = _load_prev(started)
-    print(f"[build] {cuda_ntt.build_info['path']} in "
+    print(f"[build] {cuda_lib.build_info['path']} in "
           f"{time.perf_counter() - t0:.2f}s; earlier kernels: "
           f"{'built' if prev else 'absent'}", flush=True)
-    for line in cuda_ntt.build_info["ptxas"].splitlines():
+    for line in cuda_lib.build_info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"[build] {line.strip()}", flush=True)
 

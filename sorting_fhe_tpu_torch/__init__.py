@@ -4,8 +4,10 @@ Same module layout and names as the JAX package, which stays the
 reference each part is checked against:
 
   core/    CKKS runtime: number theory, RNS arithmetic (rns), NTT tables
-           and plain versions (ntt), the hand-written CUDA NTT kernels
-           (cuda_ntt + csrc/ntt.cu), params, keys (host and device
+           and plain versions (ntt), the hand-written CUDA kernels
+           (cuda_lib: the one library of every csrc/*.cu, its launcher
+           and launch counter; wrappers cuda_ntt, cuda_basis,
+           cuda_keyswitch), params, keys (host and device
            keygen), keystore (rotation-key streaming), ckks, poly_eval,
            bootstrap (EvalBootstrap), interop (JAX-side arrays <-> this
            package's tensors)
@@ -23,5 +25,5 @@ reference each part is checked against:
            evaluator (shard_context: the context's ops on a mesh)
 
 Imports torch and numpy only, never jax.  The CUDA kernels build at first
-use on a CUDA device (core/cuda_ntt.py).
+use on a CUDA device (core/cuda_lib.py).
 """

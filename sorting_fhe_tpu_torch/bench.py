@@ -242,36 +242,36 @@ def ntt_bench(ring_log: int, device="cuda") -> dict:
             "value": round(rate, 1), "unit": "1/s", "vs_baseline": None}
 
 
-def micro_bodies(ctx, l: int, relin_key, rot_key, perm) -> dict:
+def micro_bodies(ctx, l: int) -> dict:
     """The micro table's op bodies at limb count l (bench.py:185-219), by
-    name: each maps [2, l, n] int32 data to data of that shape, so that
-    it chains.  mult_relin squares with the relinearisation key; rescale
-    drops `comp` rows and pads them back with zeros; hoist_precompute
-    writes the first digit's q rows of decompose(a[1]) into a[0];
-    rot_composed_m / rot_hoisted_m are m fast rotations with `rot_key`
-    and `perm`, after a decompose each or after one."""
-    from .core.ckks import (_kj_decompose, _kj_fast_rotate, _kj_mult_relin,
-                            _kj_rescale)
+    name, each the context's own composition: each maps [2, l, n] int32
+    data to data of that shape, so that it chains.  mult_relin squares
+    and relinearises (`_relin`); rescale drops `comp` rows and pads them
+    back with zeros; hoist_precompute writes the first digit's q rows of
+    decompose(a[1]) into a[0]; rot_composed_m / rot_hoisted_m are m fast
+    rotations by 1 (`_fast_rotate`, with the context's key and
+    automorphism), after a decompose each or after one."""
+    from .core.ckks import _k_mult3
     T, comp = ctx.tables(l), ctx.params.comp
-    steps = ctx._rescale_consts(l)
     pad = torch.zeros((2, comp, ctx.n), dtype=torch.int32, device=ctx.device)
 
     def rot_chain(m: int, hoisted: bool):
         def body(a):
-            pre = _kj_decompose(a[1], T)
+            pre = ctx._decompose(a[1], l)
             for i in range(m):
                 if i and not hoisted:
-                    pre = _kj_decompose(a[1], T)
-                a = _kj_fast_rotate(a, pre, rot_key, perm, T)
+                    pre = ctx._decompose(a[1], l)
+                a = ctx._fast_rotate(a, pre, 1, l)
             return a
         return body
 
     bodies = {
-        "mult_relin": lambda a: _kj_mult_relin(a, a, relin_key, T),
+        "mult_relin": lambda a: ctx._relin(_k_mult3(a, a, T.q_p, T.q_rinv),
+                                           l),
         "rescale": lambda a: torch.cat(
-            [_kj_rescale(a, steps, T)[:, :l - comp], pad], dim=1),
+            [ctx._rescale_data(a, l)[:, :l - comp], pad], dim=1),
         "hoist_precompute": lambda a: torch.stack(
-            (_kj_decompose(a[1], T)[0, :l], a[1]))}
+            (ctx._decompose(a[1], l)[0, :l], a[1]))}
     for m in (1, 4):
         bodies[f"rot_composed_{m}"] = rot_chain(m, False)
         bodies[f"rot_hoisted_{m}"] = rot_chain(m, True)
@@ -295,13 +295,12 @@ def micro_bench(ctx, limbs: int | None = None) -> dict:
     P = ctx.params
     l = limbs or P.nq
     ctx.gen_rotation_keys([1])
-    rk, perm = ctx._key(1), ctx._perm(1)
     rng = np.random.default_rng(0)
     data = torch.from_numpy(np.ascontiguousarray(np.stack([
         rng.integers(0, P.q[i], size=(2, ctx.n), dtype=np.int64
                      ).astype(np.uint32) for i in range(l)], axis=1)
     ).view(np.int32)).to(ctx.device)
-    bodies = micro_bodies(ctx, l, ctx.relin_key, rk, perm)
+    bodies = micro_bodies(ctx, l)
     out = {}
     for name, body in bodies.items():
         lo, hi = (1, 3) if name.startswith("rot_") else (2, 8)
@@ -432,7 +431,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     input ("ct") and its values ("values"), the first trial's output
     ("out"), the sign config ("sign"), the registry's SortParams
     ("params") and the slot count ("slots")."""
-    from .core import cuda_basis, cuda_keyswitch, cuda_ntt
+    from .core import cuda_lib
     from .core.bootstrap import BootstrapHook
     from .core.ckks import CkksContext
     from .registry import get_params, full_config, security_check
@@ -489,8 +488,6 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
     cfg_sign = p.sign_config()
 
     times, census, launches, encodes, bootstraps = [], [], [], [], []
-    kernels = (cuda_ntt.ntt_fwd, cuda_ntt.ntt_inv, cuda_basis.base_conv,
-               cuda_keyswitch.ks_inner, cuda_keyswitch.moddown_tail)
     max_err = gate = prof_summary = None
     reset_device_peak(device)
     for t in range(trials):
@@ -499,7 +496,7 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) if traced \
             else contextlib.nullcontext()
-        before = [kern.launches for kern in kernels]
+        before = cuda_lib.launches.copy()
         if hook is not None:
             hook.calls = []
         with prof:
@@ -514,8 +511,8 @@ def sort_bench(algo: str, N: int, ring_log: int, trials: int,
                 profile_dir, f"trace_{algo}_N{N}.json"))
             prof_summary = profile_summary(prof, dt)
         census.append(dict(ctx.op_counts))
-        launches.append({kern.__name__: kern.launches - n0
-                         for kern, n0 in zip(kernels, before)})
+        launches.append({k: cuda_lib.launches[k] - before[k]
+                         for k in cuda_lib.KERNELS})
         encodes.append({"count": ctx.pt_encode_count,
                         "s": ctx.pt_encode_s})
         if hook is not None:

@@ -14,7 +14,9 @@ exact int64 (core/rns.py), so every op returns the residues the JAX op
 returns.  Both NTTs go through core/cuda_ntt.py, the key switch's base
 conversions (ModUp, ModDown) through core/cuda_basis.py and its key inner
 product and ModDown's tail through core/cuda_keyswitch.py: the
-hand-written kernels on a CUDA device, their plain versions on the CPU.
+hand-written kernels of core/cuda_lib.py's library on a CUDA device, their
+plain versions on the CPU.  Each key-switching op is composed once, by the
+context's `_relin` and `_fast_rotate` over `_decompose` and `_keyswitch`.
 
 Differences from the JAX package, none of which changes a bit: ops are
 plain functions run eagerly (no jit, no pytrees, no trace-state guards),
@@ -314,30 +316,6 @@ def _k_ks_moddown(exts, ksk, T: _LevelTables, perm=None):
 
 def _kj_permute(data, perm):
     return data.index_select(-1, perm)
-
-
-def _k_keyswitch(d, exts, ksk, T: _LevelTables):
-    """d[:2] + ModDown(<exts, ksk>): the relinearize tail, int32."""
-    dd = _k_ks_moddown(exts, ksk, T)
-    return add_mod(d[:2], dd, _col(T.q_p)).to(I32)
-
-
-def _kj_mult_relin(a, b, ksk, T):
-    d = _k_mult3(a, b, T.q_p, T.q_rinv)
-    return _k_keyswitch(d, _kj_decompose(d[2], T), ksk, T)
-
-
-def _kj_fast_rotate(data, precomp, ksk, perm, T):
-    """Automorphism of hoisted digits + key inner product + ModDown."""
-    d = _k_ks_moddown(precomp, ksk, T, perm)
-    c0 = add_mod(_kj_permute(data[0:1], perm), d[0:1], _col(T.q_p))
-    return torch.cat([c0, d[1:2]], dim=0).to(I32)
-
-
-def _kj_rotate_fused(data, ksk, perm, T):
-    """EvalRotate: decompose + automorphism + key inner product + moddown
-    (one-shot rotation, no shared precompute)."""
-    return _kj_fast_rotate(data, _kj_decompose(data[1], T), ksk, perm, T)
 
 
 def _kj_encode(rows, rmod, T):

@@ -21,16 +21,16 @@ the two (parallel/collective.py `_extend`, `_phase3`).  Mod raise's CRT
 extension (`_k_raise_rows`) keeps its own loop: it adds a float32
 correction.
 
-Dispatch as in core/cuda_ntt.py: a CPU tensor takes the plain version
-`base_conv_t`; a CUDA tensor launches the kernel or raises.  The kernel
-is built into cuda_ntt's library.
+Dispatch by core/cuda_lib.py's device rule: a CPU tensor takes the plain
+version `base_conv_t`; a CUDA tensor launches the kernel or raises.  The
+kernel is built into that module's library.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_ntt import build
+from . import cuda_lib
 
 I32 = torch.int32
 I64 = torch.int64
@@ -59,31 +59,28 @@ def base_conv_t(x, conv, p, alpha: int, w=None, q=None,
     return out
 
 
-def _check(x, conv, p, alpha, w, q, keep_own):
-    if x.dtype != I32:
-        raise TypeError(f"base_conv input must be int32, got {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"base_conv input must be contiguous [K, L, n], got "
-                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+def _check(x, conv, p, alpha, w, q, keep_own) -> bool:
+    """Raise on what neither version takes; True where the kernel runs."""
+    cuda_lib.residues("base_conv", "x", x, 3)
     L, R = x.shape[1], p.numel()
-    tables = {"conv": (conv, (L, R)), "p": (p, (R,))}
     if (w is None) != (q is None):
         raise ValueError("base_conv takes the pre-scale's w and q together")
-    if w is not None:
-        tables.update(w=(w, (L,)), q=(q, (L,)))
-    for name, (t, shape) in tables.items():
-        if t.dtype != I64 or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int64 {list(shape)},"
-                             f" got {t.dtype} {tuple(t.shape)}")
-        if t.device != x.device:
-            raise ValueError(f"devices differ: x {x.device}, {name} "
-                             f"{t.device}")
+    cuda_lib.tables("base_conv", x.device, conv=(conv, (L, R)), p=(p, (R,)),
+                    **({} if w is None else {"w": (w, (L,)), "q": (q, (L,))}))
     if alpha < 1:
         raise ValueError(f"digit width {alpha}")
     if keep_own and R < L:
         raise ValueError(f"keep_own needs the {L} source rows among the "
                          f"{R} targets")
+    if not cuda_lib.kernel_device("base-conversion", x.device):
+        return False
+    if min(alpha, L) > MAX_DIGIT:
+        raise ValueError(f"digits of {min(alpha, L)} rows are above the "
+                         f"kernel's {MAX_DIGIT}")
+    if x.data_ptr() % 16 or x.shape[2] % 4:
+        raise ValueError("base_conv input must be 16-byte aligned with n a "
+                         "multiple of 4")
+    return True
 
 
 def base_conv(x, conv, p, alpha: int, w=None, q=None,
@@ -91,31 +88,15 @@ def base_conv(x, conv, p, alpha: int, w=None, q=None,
     """The base conversion of x's digits onto the primes p (module
     docstring): the kernel on a CUDA tensor, the plain version on a CPU
     one."""
-    _check(x, conv, p, alpha, w, q, keep_own)
-    if x.device.type == "cpu":
+    if not _check(x, conv, p, alpha, w, q, keep_own):
         return base_conv_t(x, conv, p, alpha, w, q, keep_own)
-    if x.device.type != "cuda":
-        raise ValueError(f"no base-conversion kernel for device {x.device}")
     K, L, n = x.shape
     R = p.numel()
-    if min(alpha, L) > MAX_DIGIT:
-        raise ValueError(f"digits of {min(alpha, L)} rows are above the "
-                         f"kernel's {MAX_DIGIT}")
-    if x.data_ptr() % 16 or n % 4:
-        raise ValueError("base_conv input must be 16-byte aligned with n a "
-                         "multiple of 4")
     out = torch.empty((K, -(-L // alpha), R, n), dtype=I32, device=x.device)
-    if not out.numel():
-        return out
-    err = build().base_conv_launch(
-        x.data_ptr(), out.data_ptr(), conv.data_ptr(), p.data_ptr(),
-        None if w is None else w.data_ptr(),
-        None if q is None else q.data_ptr(), K, L, alpha, R, n,
-        int(keep_own), torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"base_conv kernel launch failed: cudaError {err}")
-    base_conv.launches += 1
+    if out.numel():
+        cuda_lib.launch("base_conv", x.device, x.data_ptr(), out.data_ptr(),
+                        conv.data_ptr(), p.data_ptr(),
+                        None if w is None else w.data_ptr(),
+                        None if q is None else q.data_ptr(), K, L, alpha, R,
+                        n, int(keep_own))
     return out
-
-
-base_conv.launches = 0     # raised once per kernel launch, nowhere else

@@ -23,17 +23,17 @@ Callers: the key switch (`_k_ks_moddown` in core/ckks.py: relinearisation,
 rotations, conjugation, hoisted rotations) and the mesh's copies of it
 (parallel/collective.py `_inner`, `_phase3`).
 
-Dispatch as in core/cuda_basis.py: a CPU tensor takes the plain version
-(`ks_inner_t`, `moddown_tail_t`: the int64 torch chains the key switch ran
-before); a CUDA tensor launches the kernel or raises.  The kernels are
-built into cuda_ntt's library.
+Dispatch by core/cuda_lib.py's device rule: a CPU tensor takes the plain
+version (`ks_inner_t`, `moddown_tail_t`: the int64 torch chains the key
+switch ran before); a CUDA tensor launches the kernel or raises.  The
+kernels are built into that module's library.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_ntt import build
+from . import cuda_lib
 from .rns import sub_mod
 
 I32 = torch.int32
@@ -66,100 +66,56 @@ def moddown_tail_t(acc_q, conv, p, pinv) -> torch.Tensor:
     return (sub_mod(acc_q, conv, pe) * pinv.reshape(-1, 1) % pe).to(I32)
 
 
-def _tables(name, device, **tables):
-    for t_name, (t, shape) in tables.items():
-        if t.dtype != I64 or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: {t_name} must be contiguous int64 "
-                             f"{list(shape)}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name}: devices differ: {device}, {t_name} "
-                             f"{t.device}")
-
-
-def _residues(name, t_name, t, dims, device=None):
-    if t.dtype != I32:
-        raise TypeError(f"{name}: {t_name} must be int32, got {t.dtype}")
-    if t.dim() != dims or not t.is_contiguous():
-        raise ValueError(f"{name}: {t_name} must be contiguous with {dims} "
-                         f"dimensions, got {tuple(t.shape)} contiguous="
-                         f"{t.is_contiguous()}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: devices differ: {device}, {t_name} "
-                         f"{t.device}")
-
-
-def _kernel_device(name, device):
-    if device.type != "cuda":
-        raise ValueError(f"no {name} kernel for device {device}")
-
-
 def ks_inner(exts, key, p, rinv, lq: int, kq: int, perm=None) -> tuple:
     """The inner product of the digits with the key, times 2^-32 (module
     docstring): (q rows, special rows), the kernel on a CUDA tensor, the
     plain version on a CPU one."""
-    _residues("ks_inner", "exts", exts, 3)
-    _residues("ks_inner", "key", key, 4, exts.device)
+    cuda_lib.residues("ks_inner", "exts", exts, 3)
+    cuda_lib.residues("ks_inner", "key", key, 4, exts.device)
     ndig, E, n = exts.shape
     D, two, KR, kn = key.shape
-    _tables("ks_inner", exts.device, p=(p, (E,)), rinv=(rinv, (E,)),
-            **({} if perm is None else {"perm": (perm, (n,))}))
+    cuda_lib.tables("ks_inner", exts.device, p=(p, (E,)), rinv=(rinv, (E,)),
+                    **({} if perm is None else {"perm": (perm, (n,))}))
     if two != 2 or kn != n or D < ndig:
         raise ValueError(f"ks_inner: key {tuple(key.shape)} for digits "
                          f"{tuple(exts.shape)}")
     if not 0 <= lq <= min(E, kq) or kq + E - lq > KR:
         raise ValueError(f"ks_inner: {lq} q rows of {E} and key rows from "
                          f"{kq} do not fit the key's {KR} rows")
-    if exts.device.type == "cpu":
+    if not cuda_lib.kernel_device("ks_inner", exts.device):
         return ks_inner_t(exts, key, p, rinv, lq, kq, perm)
-    _kernel_device("ks_inner", exts.device)
     if n < 4 or n & (n - 1):
         raise ValueError(f"ks_inner: n = {n} is not a power of two >= 4")
     buf = torch.empty(2 * E * n, dtype=I32, device=exts.device)
     out_q = buf[:2 * lq * n].view(2, lq, n)
     out_sp = buf[2 * lq * n:].view(2, E - lq, n)
-    if E == 0:                 # a mesh slot with no rows at this level
-        return out_q, out_sp
-    err = build().ks_inner_launch(
-        exts.data_ptr(), key.data_ptr(), p.data_ptr(), rinv.data_ptr(),
-        None if perm is None else perm.data_ptr(), out_q.data_ptr(),
-        out_sp.data_ptr(), ndig, E, lq, kq, KR, n,
-        torch.cuda.current_stream(exts.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"ks_inner kernel launch failed: cudaError {err}")
-    ks_inner.launches += 1
+    if E:                      # none: a mesh slot with no rows at this level
+        cuda_lib.launch("ks_inner", exts.device, exts.data_ptr(),
+                        key.data_ptr(), p.data_ptr(), rinv.data_ptr(),
+                        None if perm is None else perm.data_ptr(),
+                        out_q.data_ptr(), out_sp.data_ptr(), ndig, E, lq, kq,
+                        KR, n)
     return out_q, out_sp
 
 
 def moddown_tail(acc_q, conv, p, pinv) -> torch.Tensor:
     """(acc_q - conv) * pinv mod p (module docstring): the kernel on a
     CUDA tensor, the plain version on a CPU one."""
-    _residues("moddown_tail", "acc_q", acc_q, 3)
-    _residues("moddown_tail", "conv", conv, 3, acc_q.device)
+    cuda_lib.residues("moddown_tail", "acc_q", acc_q, 3)
+    cuda_lib.residues("moddown_tail", "conv", conv, 3, acc_q.device)
     if conv.shape != acc_q.shape:
         raise ValueError(f"moddown_tail: shapes differ: {tuple(acc_q.shape)}"
                          f", {tuple(conv.shape)}")
     K, l, n = acc_q.shape
-    _tables("moddown_tail", acc_q.device, p=(p, (l,)), pinv=(pinv, (l,)))
-    if acc_q.device.type == "cpu":
+    cuda_lib.tables("moddown_tail", acc_q.device, p=(p, (l,)),
+                    pinv=(pinv, (l,)))
+    if not cuda_lib.kernel_device("moddown_tail", acc_q.device):
         return moddown_tail_t(acc_q, conv, p, pinv)
-    _kernel_device("moddown_tail", acc_q.device)
     if n % 4:
         raise ValueError(f"moddown_tail: n = {n} is not a multiple of 4")
     out = torch.empty_like(acc_q)
-    if not out.numel():
-        return out
-    err = build().moddown_tail_launch(
-        acc_q.data_ptr(), conv.data_ptr(), p.data_ptr(), pinv.data_ptr(),
-        out.data_ptr(), K, l, n,
-        torch.cuda.current_stream(acc_q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"moddown_tail kernel launch failed: cudaError "
-                           f"{err}")
-    moddown_tail.launches += 1
+    if out.numel():
+        cuda_lib.launch("moddown_tail", acc_q.device, acc_q.data_ptr(),
+                        conv.data_ptr(), p.data_ptr(), pinv.data_ptr(),
+                        out.data_ptr(), K, l, n)
     return out
-
-
-ks_inner.launches = 0       # raised once per kernel launch, nowhere else
-moddown_tail.launches = 0

@@ -13,10 +13,9 @@ output.
 The reference CLI fixes N=128 (main.cpp:36) and DirectSort with
 CompositeSignConfig(4,3,3) (sort.h:86); both are flags here.  The server
 runs on the card unless --cpu asks for the CPU; its stderr lines give
-the seconds of loading and of the sort, and the sort's launches of the
-hand-written kernels (K1, K2, the base conversion BC, the key inner
-product KS and ModDown's tail MD) and, on the card, its peak device
-memory.  It computes what the
+the seconds of loading and of the sort, and the sort's launches of each
+hand-written kernel (core/cuda_lib.py's KERNELS, by name) and, on the
+card, its peak device memory.  It computes what the
 JAX package's driver computes from the same files, faults included: the
 sorter is built on whatever keys the files hold, without the minimal
 key mode (so a minimal key set leaves rotations uncovered), and the
@@ -32,7 +31,7 @@ import time
 import torch
 
 from . import serial
-from .core import cuda_basis, cuda_keyswitch, cuda_ntt
+from .core import cuda_lib
 from .core.ckks import CkksContext, Ciphertext
 from .ops.sign import SignConfig, CompositeSignConfig
 
@@ -106,10 +105,7 @@ def main(argv=None) -> int:
     sc.ctx.sync()
     print(f"[driver] context + keys + input deserialized in "
           f"{time.time()-t0:.3f}s", file=sys.stderr)
-    fwd0, inv0 = cuda_ntt.ntt_fwd.launches, cuda_ntt.ntt_inv.launches
-    bc0 = cuda_basis.base_conv.launches
-    ks0 = cuda_keyswitch.ks_inner.launches
-    md0 = cuda_keyswitch.moddown_tail.launches
+    k0 = cuda_lib.launches.copy()
     dev = sc.ctx.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -120,11 +116,8 @@ def main(argv=None) -> int:
             if dev.type == "cuda" else "")
     print(f"[driver] {args.algo} sort N={args.N}: {time.time()-t0:.3f}s "
           f"(mults={sc.ctx.mult_count} rots={sc.ctx.rot_count}) "
-          f"launches K1={cuda_ntt.ntt_fwd.launches - fwd0} "
-          f"K2={cuda_ntt.ntt_inv.launches - inv0} "
-          f"BC={cuda_basis.base_conv.launches - bc0} "
-          f"KS={cuda_keyswitch.ks_inner.launches - ks0} "
-          f"MD={cuda_keyswitch.moddown_tail.launches - md0}{peak}",
+          "launches " + " ".join(f"{k}={cuda_lib.launches[k] - k0[k]}"
+                                  for k in cuda_lib.KERNELS) + peak,
           file=sys.stderr)
     sc.serialize_output()
     return 0

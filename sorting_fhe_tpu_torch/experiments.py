@@ -25,9 +25,9 @@ SORTING_FHE_KEY_BUDGET_MB, e.g.
         --algo mehp24 --sizes 512 --trials 1
 
 and each trial's record gives the keys, their regenerations and the
-bytes resident after the sort (beside the sort's launches of the
-hand-written kernels, K1, K2, the base conversion, the key inner product
-and ModDown's tail, which include the launches of the keys it made).
+bytes resident after the sort (beside the sort's launches of each
+hand-written kernel, by name, which include the launches of the keys it
+made).
 Where it differs from the JAX package's harness: without the variable every key stays
 resident (the JAX arm's default of 5120 MB is sized for the 16 GB v5e;
 see bench.key_budget_overrides), nothing is pre-touched, k-way boots
@@ -51,9 +51,7 @@ import numpy as np
 
 from .bench import (boot_overrides, build_sorter, default_minimal_keys,
                     key_budget_overrides)
-from .core.cuda_basis import base_conv
-from .core.cuda_keyswitch import ks_inner, moddown_tail
-from .core.cuda_ntt import ntt_fwd, ntt_inv
+from .core import cuda_lib
 from .registry import get_params, full_config, cheap_config, security_check
 from .utils.memory import MemoryMonitor
 from .utils.testvec import vector_with_min_diff
@@ -106,14 +104,12 @@ def run_trial(algo: str, N: int, ring_log: int, seed: int,
     mon.mark("setup")
 
     m0, r0 = ctx.mult_count, ctx.rot_count
-    kernels = (ntt_fwd, ntt_inv, base_conv, ks_inner, moddown_tail)
-    k0 = [kern.launches for kern in kernels]
+    k0 = cuda_lib.launches.copy()
     t0 = time.time()
     out = sort_fn(ct, p.sign_config())
     ctx.sync()
     exec_ms = (time.time() - t0) * 1000.0
-    launches = {kern.__name__: kern.launches - n0
-                for kern, n0 in zip(kernels, k0)}
+    launches = {k: cuda_lib.launches[k] - k0[k] for k in cuda_lib.KERNELS}
     got = ctx.decrypt(out)[:N]
     mon.stop()
 

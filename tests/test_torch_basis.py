@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from sorting_fhe_tpu_torch.core import ckks as tck
-from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt, nt
+from sorting_fhe_tpu_torch.core import cuda_basis, cuda_lib, nt
 from sorting_fhe_tpu_torch.core.params import CkksConfig
 from sorting_fhe_tpu_torch.core.rns import sub_mod
 from sorting_fhe_tpu_torch.parallel import collective
@@ -135,8 +135,8 @@ def test_modup_moddown_equal_the_old_loops(ctx):
     builds nothing on the CPU and raises on what the kernel does not
     take."""
     P, rng = ctx.params, np.random.default_rng(10)
-    cuda_basis.base_conv.launches = 0
-    lib = cuda_ntt._lib         # None unless a card's test loaded it first
+    before = cuda_lib.launches["base_conv"]
+    lib = cuda_lib._lib         # None unless a card's test loaded it first
     for l in LEVELS:
         T = ctx.tables(l)
         ins, convs = old_digit_tables(P, l)
@@ -151,8 +151,8 @@ def test_modup_moddown_equal_the_old_loops(ctx):
                              acc[:, l:].to(I32).contiguous(), T)
         assert got.dtype == I32
         assert torch.equal(got, old_moddown(acc, T).to(I32)), l
-    assert cuda_basis.base_conv.launches == 0
-    assert cuda_ntt._lib is lib         # nothing was built or loaded
+    assert cuda_lib.launches["base_conv"] == before
+    assert cuda_lib._lib is lib         # nothing was built or loaded
     T = ctx.tables(LEVELS[0])
     x = _residues(rng, P.q[:15], (1,)).to(I32)
     args = (T.dig_conv, T.ext_p, T.alpha, T.dig_in, T.q_p)

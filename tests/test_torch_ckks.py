@@ -4,7 +4,10 @@ Both contexts are built without keygen (`_init_common`), so their tables
 and rescale constants come from the same config.  Random canonical
 residues from one numpy seed stand in for ciphertexts and for the
 key-switching key (parity needs no real key); the JAX op and the port's
-op must return the same residues.  Key generation is checked on its own:
+op must return the same residues.  The port's relinearisation and
+rotations are the context's own (`_relin`, `_fast_rotate`), which every
+mult, square, rotation and conjugation runs, with the random key set as
+its relinearisation key and pinned as its rotation key 1.  Key generation is checked on its own:
 the same seed gives the same public and relinearization keys.
 
 Ring 2^12 (not smaller): the JAX package's prime-pool scan for the
@@ -73,14 +76,17 @@ def test_ops_bit_equal(ctxs):
     got = tck._kj_rescale(ta, t._rescale_consts(l), TT)
     want = jck._kj_rescale(ja, j._rescale_consts(l), JT)
     _eq(want[:, :l - 2], got, "rescale")
+    # the port's side is the context's own composition, over its keys
+    t.relin_key = tk
+    t.rot_keys[1] = tk
     _eq(jck._kj_mult_relin(ja, jb, jk, JT),
-        tck._kj_mult_relin(ta, tb, tk, TT), "mult_relin")
+        t._relin(tck._k_mult3(ta, tb, TT.q_p, TT.q_rinv), l), "mult_relin")
     _eq(jck._kj_rotate_fused(ja, jk, jperm, JT),
-        tck._kj_rotate_fused(ta, tk, tperm, TT), "rotate_fused")
-    jpre, tpre = jck._kj_decompose(ja[1], JT), tck._kj_decompose(ta[1], TT)
+        t._fast_rotate(ta, t._decompose(ta[1], l), 1, l), "rotate_fused")
+    jpre, tpre = jck._kj_decompose(ja[1], JT), t._decompose(ta[1], l)
     _eq(jpre, tpre, "decompose")
     _eq(jck._kj_fast_rotate(ja, jpre, jk, jperm, JT),
-        tck._kj_fast_rotate(ta, tpre, tk, tperm, TT), "fast_rotate")
+        t._fast_rotate(ta, tpre, 1, l), "fast_rotate")
 
     rows = _residues(rng, P.q[:l], (), n)
     rmod = np.array([(1 << 32) % p for p in P.q[:l]], dtype=np.uint32)

@@ -1,5 +1,6 @@
-"""K1/K2 and the base-conversion kernel against their plain versions, on
-the card.
+"""K1/K2, the base-conversion kernel and the key switch's two kernels
+against their plain versions, on the card, each call counted once in
+core/cuda_lib.py's `launches`.
 
 Marked `cuda`: they skip without a CUDA device (a CUDA kernel has no CPU
 mode).  This file imports no JAX, so it also runs where only the port is
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from sorting_fhe_tpu_torch.core import cuda_basis, cuda_ntt, nt
+from sorting_fhe_tpu_torch.core import (cuda_basis, cuda_lib, cuda_ntt,
+                                        nt)
 from sorting_fhe_tpu_torch.core.ntt import NttContext, ntt_fwd_t, ntt_inv_t
 
 torch.set_num_threads(1)   # one thread per test worker: six share the cores
@@ -46,9 +48,9 @@ def test_kernels_bit_equal_to_plain(device, logn):
         x = torch.from_numpy(x.view(np.int32)).to(device)
         rows = torch.tensor(sel, dtype=torch.int32, device=device)
         r = rows.long()
-        before = cuda_ntt.ntt_fwd.launches
+        before = cuda_lib.launches["ntt_fwd"]
         f = cuda_ntt.ntt_fwd(x, tabs, rows)
-        assert cuda_ntt.ntt_fwd.launches == before + 1
+        assert cuda_lib.launches["ntt_fwd"] == before + 1
         assert torch.equal(f, ntt_fwd_t(x, tabs.p[r], tabs.psi[r]))
         i = cuda_ntt.ntt_inv(f, tabs, rows)
         assert torch.equal(i, ntt_inv_t(f, tabs.p[r], tabs.ipsi[r],
@@ -177,10 +179,10 @@ def test_base_conv_bit_equal_to_plain(device, name):
         x, conv, p, w, q = _basis_case(device, K, L, R, 1 << logn, top, rng)
         for pre in ((w, q), (None, None)):
             for keep in (False, True) if R >= L else (False,):
-                before = cuda_basis.base_conv.launches
+                before = cuda_lib.launches["base_conv"]
                 got = cuda_basis.base_conv(x, conv, p, alpha, *pre,
                                            keep_own=keep)
-                assert cuda_basis.base_conv.launches == before + 1
+                assert cuda_lib.launches["base_conv"] == before + 1
                 want = cuda_basis.base_conv_t(x, conv, p, alpha, *pre,
                                               keep_own=keep)
                 assert got.shape == (K, -(-L // alpha), R, 1 << logn)
@@ -268,16 +270,16 @@ def test_ks_inner_moddown_tail_bit_equal_to_plain(device, name):
     for top in (False, True):
         exts, key, p, rinv = _ks_case(device, ndig, lq, ks, kq, n, top, rng)
         for i, perm in enumerate(perms):
-            before = ck.ks_inner.launches
+            before = cuda_lib.launches["ks_inner"]
             q, sp = ck.ks_inner(exts, key, p, rinv, lq, kq, perm)
-            assert ck.ks_inner.launches == before + 1
+            assert cuda_lib.launches["ks_inner"] == before + 1
             wq, wsp = ck.ks_inner_t(exts, key, p, rinv, lq, kq, perm)
             assert torch.equal(q, wq) and torch.equal(sp, wsp), (top, i)
         conv = exts[0, :lq].expand(2, lq, n).contiguous()
         pinv = rinv[:lq].contiguous()
-        before = ck.moddown_tail.launches
+        before = cuda_lib.launches["moddown_tail"]
         got = ck.moddown_tail(q, conv, p[:lq].contiguous(), pinv)
-        assert ck.moddown_tail.launches == before + 1
+        assert cuda_lib.launches["moddown_tail"] == before + 1
         assert torch.equal(got, ck.moddown_tail_t(q, conv, p[:lq], pinv))
 
 

@@ -34,6 +34,7 @@ from sorting_fhe_tpu.core.params import CkksConfig as JCfg
 from sorting_fhe_tpu.driver import SortContext as JSortContext
 from sorting_fhe_tpu.utils.plain import PlainContext as JPlain
 from sorting_fhe_tpu_torch import serial as tserial
+from sorting_fhe_tpu_torch.core import cuda_lib
 from sorting_fhe_tpu_torch.core.ckks import CkksContext as TC
 from sorting_fhe_tpu_torch.core.params import CkksConfig as TCfg
 from sorting_fhe_tpu_torch.driver import SortContext as TSortContext
@@ -168,6 +169,8 @@ def test_cli_blind_sort_subprocess(tmp_path, depth):
         assert not ct_out.exists()
         return
     assert res.returncode == 0, res.stderr
-    assert "launches K1=0 K2=0 BC=0 KS=0 MD=0" in res.stderr   # CPU: none
+    # the CPU launches none of the kernels
+    assert "launches " + " ".join(f"{k}=0" for k in cuda_lib.KERNELS) \
+        in res.stderr
     got = ctx.decrypt(tserial.load_ciphertext(ct_out, device="cpu"))[:N]
     assert np.abs(got - np.sort(v)).max() < 0.01

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from sorting_fhe_tpu_torch.core import ckks as tck
-from sorting_fhe_tpu_torch.core import cuda_keyswitch, cuda_ntt
+from sorting_fhe_tpu_torch.core import cuda_keyswitch, cuda_lib
 from sorting_fhe_tpu_torch.core.params import CkksConfig
 from sorting_fhe_tpu_torch.core.rns import sub_mod
 from sorting_fhe_tpu_torch.parallel import collective
@@ -136,9 +136,8 @@ def test_ks_inner_moddown_tail_equal_the_old_chains():
     the old chains at each dnum, level and key; on the CPU nothing is
     built or launched, and the wrappers raise on what the kernels do not
     take."""
-    lib = cuda_ntt._lib         # None unless a card's test loaded it first
-    before = (cuda_keyswitch.ks_inner.launches,
-              cuda_keyswitch.moddown_tail.launches)
+    lib = cuda_lib._lib         # None unless a card's test loaded it first
+    before = cuda_lib.launches.copy()
     for dnum, levels in DNUMS.items():
         ctx = _ctx(dnum)
         rng = np.random.default_rng(10 + dnum)
@@ -167,9 +166,8 @@ def test_ks_inner_moddown_tail_equal_the_old_chains():
                 assert torch.equal(got, old_keyswitch(ctx, exts, tag,
                                                       l).to(I32)), \
                     (dnum, l, tag)
-    assert (cuda_keyswitch.ks_inner.launches,
-            cuda_keyswitch.moddown_tail.launches) == before
-    assert cuda_ntt._lib is lib         # nothing was built or loaded
+    assert cuda_lib.launches == before
+    assert cuda_lib._lib is lib         # nothing was built or loaded
 
     T = ctx.tables(15)
     exts, key = _exts(ctx, 15, rng), ctx._key("relin")

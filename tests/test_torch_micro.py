@@ -6,10 +6,12 @@ Tier-1:
   * on a ring-2^8 CPU context (limb_pad=1), micro_bench and
     ntt_bench(8, device="cpu") return the JAX functions' keys
     (bench.py:102-234), every value finite and > 0;
-  * the micro table's bodies, one repetition each, bit-equal to the
-    JAX bench's bodies over `_kj_mult_relin`, `_kj_rescale`,
+  * the micro table's bodies (the context's `_relin`, `_rescale_data`,
+    `_decompose` and `_fast_rotate`), one repetition each, bit-equal to
+    the JAX bench's bodies over `_kj_mult_relin`, `_kj_rescale`,
     `_kj_decompose` and `_kj_fast_rotate` on the same numpy residues (the
-    keys random residues, as in tests/test_torch_ckks.py), at
+    keys random residues set as the context's relinearisation key and
+    rotation key 1, as in tests/test_torch_ckks.py), at
     tests/test_torch_ckks.py's ring 2^12 config and limb count, so no
     JAX op is compiled at a shape that test does not compile.
 
@@ -113,8 +115,9 @@ def test_micro_bodies_bit_equal_jax():
                                dtype=np.uint64) % pa).astype(np.uint32)
                  for _ in range(2))
     want = _jax_bodies(j, l, jnp.asarray(relin), jnp.asarray(rk), j._perm(1))
-    got = bench.micro_bodies(t, l, residues_to_torch(relin, "cpu"),
-                             residues_to_torch(rk, "cpu"), t._perm(1))
+    t.relin_key = residues_to_torch(relin, "cpu")
+    t.rot_keys[1] = residues_to_torch(rk, "cpu")
+    got = bench.micro_bodies(t, l)
     assert list(got) == list(want) == [k[:-3] for k in MICRO_KEYS[:-1]]
     ta = residues_to_torch(a, "cpu")
     for name, body in got.items():

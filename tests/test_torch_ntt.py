@@ -5,9 +5,11 @@ the plain versions on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 
 Mirrors tests/test_pallas_ntt.py: full prefix, row subset [4, 1, 5],
-batched leading dims, round trip.
+batched leading dims, round trip.  Also holds core/cuda_lib.py's table
+of C signatures to the entry points that csrc/*.cu defines.
 """
 
+import re
 import sys
 import subprocess
 
@@ -21,7 +23,7 @@ from sorting_fhe_tpu.core import nt
 from sorting_fhe_tpu.core.ntt import NttContext as JNtt
 from sorting_fhe_tpu.core import ntt as jntt
 from sorting_fhe_tpu.core.pallas_ntt import ntt_fwd_pallas, ntt_inv_pallas
-from sorting_fhe_tpu_torch.core import cuda_ntt
+from sorting_fhe_tpu_torch.core import cuda_lib, cuda_ntt
 from sorting_fhe_tpu_torch.core.ntt import NttContext as TNtt
 from sorting_fhe_tpu_torch.core.ntt import ntt_fwd_t, ntt_inv_t
 
@@ -105,12 +107,12 @@ def test_wrapper_cpu_path_launches_nothing_and_checks_inputs():
     tc = TNtt(primes, n, "cpu")
     rows = torch.arange(2, dtype=torch.int32)
     x = torch.zeros((2, n), dtype=torch.int32)
-    cuda_ntt.reset_launch_counts()
+    cuda_lib.reset()
     cuda_ntt.ntt_fwd(x, tc, rows)
     cuda_ntt.ntt_inv(x, tc, rows)
-    assert cuda_ntt.ntt_fwd.launches == 0
-    assert cuda_ntt.ntt_inv.launches == 0
-    assert cuda_ntt._lib is None        # nothing was built or loaded
+    assert cuda_lib.launches["ntt_fwd"] == 0
+    assert cuda_lib.launches["ntt_inv"] == 0
+    assert cuda_lib._lib is None        # nothing was built or loaded
     with pytest.raises(TypeError):
         cuda_ntt.ntt_fwd(x.long(), tc, rows)
     with pytest.raises(ValueError):
@@ -122,8 +124,30 @@ def test_wrapper_cpu_path_launches_nothing_and_checks_inputs():
 
 def test_port_imports_without_jax_or_nvcc():
     code = ("import sys; import sorting_fhe_tpu_torch.models.direct_sort; "
-            "import sorting_fhe_tpu_torch.core.cuda_ntt as c; "
+            "import sorting_fhe_tpu_torch.core.cuda_lib as c; "
             "import sorting_fhe_tpu_torch.bench; "
             "assert 'jax' not in sys.modules, 'port imported jax'; "
             "assert c._lib is None")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_signature_table_names_every_entry_point():
+    """cuda_lib.SIGNATURES declares exactly the `extern "C"` functions of
+    csrc/*.cu, each with its C parameter count, and every `*_launch`
+    entry point is a kernel the counter knows; read from the sources, no
+    nvcc."""
+    assert cuda_lib.SOURCES, "no csrc/*.cu found"
+    defined = {}
+    for src in cuda_lib.SOURCES:
+        text = src.read_text()
+        found = re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)',
+                           text)
+        assert len(found) == text.count('extern "C"'), src.name  # int only
+        for name, params in found:
+            assert name not in defined, f"{name} defined twice"
+            defined[name] = len([a for a in params.split(",") if a.strip()])
+    assert defined == {name: len(argtypes) for name, argtypes
+                       in cuda_lib.SIGNATURES.items()}
+    assert set(cuda_lib.KERNELS) == {
+        name.removesuffix("_launch") for name in defined
+        if name.endswith("_launch")}
