@@ -5,9 +5,10 @@
 1. Environment: Python/torch/CUDA versions and the card's name and power
    limit (nvidia-smi).  Exits non-zero without a CUDA device: nothing here
    runs on the CPU instead.
-2. Build: compiles the five kernels (sorting_fhe_tpu_torch/csrc/ntt.cu,
+2. Build: compiles the six kernels (sorting_fhe_tpu_torch/csrc/ntt.cu,
    K1/K2; csrc/basis.cu, the base conversion; csrc/keyswitch.cu, the key
-   inner product and ModDown's tail) with nvcc from this checkout's
+   inner product and ModDown's tail; csrc/rescale.cu, the composite
+   rescale's lift) with nvcc from this checkout's
    sources and prints the build time and the registers of each kernel.
    When a copy of an earlier version of the NTT kernels sits at
    _chip/prev/ntt.cu (gitignored; e.g. `git show
@@ -74,6 +75,15 @@
    plain version; printed are their times (raw launches, as above), their
    bounds (each input read once and each output written once over 3.35
    TB/s) and shares of them, and the plain versions' times.
+   Then the composite rescale (core/cuda_rescale.py, comp = 2) from the
+   top level of the hybrid1 N=128 (95 q rows), mehp24 N=128 (89),
+   mehp24 N=512 (105) and ring-2^18 (115) chains, for 2 and 3 polys:
+   rescale_lift bit-equal to rescale_lift_t, and the composed rescale
+   (K2 of the dropped rows, the lift, K1, moddown_tail on the kept rows
+   in place) bit-equal to the two-step int64 chain it replaced; printed
+   are the lift's time (raw launches), its bound (the dropped rows read
+   and the kept rows written once over 3.35 TB/s) and share, its plain
+   version's time, and the whole rescale's time against the chain's.
 4. The sorts, in this order, each through bench.sort_bench at ring 2^17,
    HEStd-128, on cuda:0, with the kernel launch counters reset just
    before it and read just after: hybrid1 N=128 (2 trials), mehp24 N=128
@@ -84,7 +94,8 @@
    secret of Hamming weight 64).  Each requires its gate (max_err < 0.01;
    bitonic: its fixture's max error < 1.0 with no slot off by more than
    0.1 on the 0..255 scale), the HEStd-128 security check, launches of
-   the five kernels in every trial and, for bitonic and
+   the six kernels in every trial, as many rescale_lift launches as the
+   trial's census counts rescales (one a rescale) and, for bitonic and
    k-way, at least one bootstrap in every trial; it prints its trials,
    op census, plaintext encodes, kernel launches and bootstraps per
    trial, the peak device memory
@@ -99,8 +110,9 @@
    just before and read just after, printed on a line of its own with
    the card's name and power limit.  Requires every value finite and >
    0, rot_hoisted_1 within 1.1x of rot_composed_1 (at one step both do
-   the same work), launches of the five kernels in the
-   table and of K1 in ntt_bench.
+   the same work), launches of the six kernels in the
+   table and of K1 in ntt_bench; prints the rescale's ms beside the
+   two-step int64 chain's 5.57 ms at the same level (an H100 at 700 W).
 4d. The ring-2^18 tier: the registry's hybrid1 N=1024 (depth 56, 115 q
    + 39 special primes, dnum 3, 131072 slots, the 11 minimal rotation
    keys {1, 2, 4, ..., 1024} and relin, each [3, 2, 154, 2^18]) through
@@ -141,7 +153,7 @@
    with --reuse-context, in this process.  Prints its N128_summary.txt
    and each trial's device memory by phase (utils/memory.py) beside
    sort_bench's for the same cell in step 4; requires max_err < 0.01 in
-   each trial and launches of the five kernels.
+   each trial and launches of the six kernels.
 7b. Rotation-key streaming with device keygen, on the mehp24 N=512
    chain (depth 51, dnum 8; 41 rotation keys of 0.998 GB).  (a) For
    rotations 1, 32640 and 65280 (= -256, a split stride): the device
@@ -152,7 +164,7 @@
    np.roll.  (b) experiments.main for mehp24 N=512 (sort_large_array_fg,
    one trial, a fresh context) with SORTING_FHE_KEY_BUDGET_MB=5120, which
    holds 5 keys, with the launch counters reset just before and read just
-   after: requires max_err < 0.01, HEStd-128, launches of the five
+   after: requires max_err < 0.01, HEStd-128, launches of the six
    kernels in the sort, more regenerations than keys and the resident
    keys within the budget; prints setup seconds and exec
    ms, the regenerations and the seconds in the key store's hook
@@ -167,7 +179,7 @@
    torch.equal to (b)'s output, (b)'s census, the 0.01 gate, as many
    regenerations as (b), the store's bytes within the budget at every
    regeneration of (b) and (c) and at the end, no streamed key's blocks
-   kept by the mesh, and launches of the five kernels; prints both runs'
+   kept by the mesh, and launches of the six kernels; prints both runs'
    seconds and their ratio, the regenerations, the seconds in the hook
    and each peak.
 8. The limb-sharded key switch (sorting_fhe_tpu_torch/parallel/) on a
@@ -184,7 +196,8 @@
    this scale in both paths, is printed); exactly two gathers per op of
    (D-1)/D of the [96, n] digit residues and of the [2, 24, n] special
    residues (37,748,736 and 18,874,368 bytes per slot, as
-   collective_bytes(k=2) counts them); launches of the five kernels.  Prints
+   collective_bytes(k=2) counts them); launches of the five kernels that
+   key-switch (the ops do not rescale).  Prints
    the launches per op, best-of-5 ms of each op on the mesh and on one
    device (synchronised, warm), the step's peak device memory and
    comm_budget of step 4's hybrid1 N=128 census; with two cards or
@@ -200,7 +213,7 @@
    just after; (c) with two cards or more, the same on a mesh of up to 4
    distinct cards, else a line that it was not run.  Requires (b), and
    (c) where it runs, torch.equal to (a) once gathered; (b)'s op census
-   equal to (a)'s; max_err < 0.01; launches of the five kernels in (b); the
+   equal to (a)'s; max_err < 0.01; launches of the six kernels in (b); the
    gathers per tag that the census implies (digit: key switches -
    fast_rotate + decompose; moddown: key switches; rescale: rescales);
    their summed bytes per slot at or below comm_budget of the census
@@ -224,7 +237,7 @@
    (a); the gathers per tag that the census and the bootstraps imply
    (step 9's, and a "raise" gather per bootstrap of (D-1)/D of the [2,
    3, n] base rows); their bytes per slot at or below comm_budget of the
-   census plus the raise gathers' bytes; launches of the five kernels
+   census plus the raise gathers' bytes; launches of the six kernels
    in (b).
    Prints (a)'s and (b)'s seconds and their ratio, each bootstrap's
    seconds by phase on the mesh beside one device, the gathers and bytes
@@ -396,6 +409,15 @@ KS_CLASSES = {
     "mehp24 N=128": ((None, "relin"), (None, 1)),
     STREAM_PATH: ((None, "relin"), (None, 1))}
 KS_KERNELS = ("ks_inner", "moddown_tail")
+# step 3's composite rescale (core/cuda_rescale.py): the chains (keyed by
+# their first path) whose top level it checks, at comp = 2: hybrid1 N=128
+# (95 q rows), mehp24 N=128 (89), mehp24 N=512 (105), ring 2^18 (115)
+RESCALE_CHAINS = ("hybrid1 N=128", "mehp24 N=128", STREAM_PATH, R18_PATH)
+# the micro table's rescale at l = 95 with the two-step int64 chain the
+# lift kernel replaced (an H100 at 700 W), printed beside step 4c's
+RESCALE_CHAIN_MS = 5.57
+# what step 8's mesh ops launch: every kernel but the rescale's
+KS_PATH_KERNELS = tuple(k for k in cuda_lib.KERNELS if k != "rescale_lift")
 
 
 def _nvidia_smi() -> str:
@@ -804,7 +826,7 @@ def _check_ks(lib, P, l, tag, rng) -> dict:
         def launch():
             e = lib.moddown_tail_launch(
                 x.data_ptr(), conv.data_ptr(), T.q_p.data_ptr(),
-                T.md_pinv.data_ptr(), out.data_ptr(), 2, l, n,
+                T.md_pinv.data_ptr(), out.data_ptr(), 2, l, l, n,
                 torch.cuda.current_stream().cuda_stream)
             if e:
                 raise RuntimeError(f"moddown_tail_launch failed: cudaError "
@@ -829,6 +851,68 @@ def _check_ks(lib, P, l, tag, rng) -> dict:
                       "bound_by": "bytes", "share": bound / ms,
                       "copies": len(runs), "max_abs_err": 0}
     return rows
+
+
+def _check_rescale(lib, P, l, rng) -> dict:
+    """The composite rescale from limb count l of chain P (comp = 2), for
+    2 and 3 polys of random residues: rescale_lift of the dropped rows
+    bit-equal to rescale_lift_t, and the composed rescale
+    (core/ckks._kj_rescale) bit-equal to the same steps' plain versions
+    (ntt_inv_t, rescale_lift_t, ntt_fwd_t, moddown_tail_t) on the card.
+    Then, for 2 polys, the lift's time (raw launches into a preallocated
+    output, _kernel_ms), its plain version's, its bound (the dropped rows
+    read and the kept rows written once over 3.35 TB/s) and the whole
+    rescale's time (_time_ms: K2, the lift, K1, the tail, as the context
+    issues them)."""
+    from sorting_fhe_tpu_torch.core import cuda_keyswitch as ck
+    from sorting_fhe_tpu_torch.core import cuda_rescale as cr
+    from sorting_fhe_tpu_torch.core.ckks import _LevelTables, _kj_rescale
+    from sorting_fhe_tpu_torch.core.ntt import ntt_fwd_t, ntt_inv_t
+    T, n, comp, tabs = _LevelTables(P, l), P.n, P.comp, P.ntt
+    lo = l - comp
+    consts = cr.rescale_tables(P.q[lo:l][::-1], P.q[:lo], P.device)
+    drop, keep, pinv = consts
+    up = torch.arange(lo, l, device=P.device)
+    down = torch.arange(lo, device=P.device)
+    case = f"l={l}, comp={comp}"
+    for k in (3, 2):
+        x = _residues(rng, T.q_host, (k,), n, P.device)
+        c = x[:, lo:].contiguous()
+        lift = cr.rescale_lift(c, drop, keep)
+        got = _kj_rescale(x, consts, T)
+        coeffs = ntt_inv_t(c, tabs.p[up], tabs.ipsi[up], tabs.n_inv[up])
+        want = ck.moddown_tail_t(
+            x[:, :lo], ntt_fwd_t(cr.rescale_lift_t(coeffs, drop, keep),
+                                 tabs.p[down], tabs.psi[down]),
+            T.q_p[:lo], pinv)
+        torch.cuda.synchronize()
+        for name, a, b in (("rescale_lift", lift,
+                            cr.rescale_lift_t(c, drop, keep)),
+                           ("rescale", got, want)):
+            if not torch.equal(a, b):
+                err = int((a.long() - b.long()).abs().max())
+                raise AssertionError(f"{name} {case}, k={k}: kernel != "
+                                     f"plain (max err {err})")
+        del want, coeffs
+    out = torch.empty_like(lift)
+
+    def launch():
+        e = lib.rescale_lift_launch(
+            c.data_ptr(), drop.data_ptr(), keep.data_ptr(), out.data_ptr(),
+            2, comp, lo, n, torch.cuda.current_stream().cuda_stream)
+        if e:
+            raise RuntimeError(f"rescale_lift_launch failed: cudaError {e}")
+    ms = _kernel_ms([launch])
+    if not torch.equal(out, lift):
+        raise AssertionError(f"rescale_lift {case}: raw launch differs")
+    nbytes = 4 * 2 * (comp + lo) * n
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"case": case, "polys": 2, "ms": ms,
+            "plain_ms": _time_ms(lambda: cr.rescale_lift_t(c, drop, keep),
+                                 2),
+            "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes",
+            "share": bound / ms, "max_abs_err": 0,
+            "rescale_ms": _time_ms(lambda: _kj_rescale(x, consts, T), 10)}
 
 
 def _cli_config():
@@ -871,14 +955,15 @@ def _chain_configs() -> list:
 
 
 def check_kernels(device, int_rate: float, imad_rate: float,
-                  prev) -> tuple[dict, list, list, list]:
+                  prev) -> tuple[dict, list, list, list, list]:
     """Step 3: bit-equality and times of K1/K2 against the plain versions
     (and the earlier kernels, when built) on the chain of every path, of
-    the base conversion on the chains of BASIS_CLASSES and of the key
-    inner product and ModDown's tail on those of KS_CLASSES.  Returns,
-    per path label, the row of its chain's largest class, the whole
-    table, the base conversion's rows and the key switch's (one dict of
-    the two kernels' rows per class)."""
+    the base conversion on the chains of BASIS_CLASSES, of the key inner
+    product and ModDown's tail on those of KS_CLASSES and of the
+    composite rescale at the top level of RESCALE_CHAINS.  Returns, per
+    path label, the row of its chain's largest class, the whole table,
+    the base conversion's rows, the key switch's (one dict of the two
+    kernels' rows per class) and the rescale's."""
     from sorting_fhe_tpu_torch.core.params import CkksParams
 
     rng = np.random.default_rng(17)
@@ -886,7 +971,7 @@ def check_kernels(device, int_rate: float, imad_rate: float,
     chains = {}           # config -> (its first path, config, paths)
     for label, cfg in _chain_configs():
         chains.setdefault(repr(cfg), (label, cfg, []))[2].append(label)
-    table, largest, basis, keyswitch = [], {}, [], []
+    table, largest, basis, keyswitch, rescale = [], {}, [], [], []
     for label, cfg, paths in chains.values():
         P = CkksParams(cfg, device)
         for kind, l, slot, slots in BASIS_CLASSES.get(label, ()):
@@ -897,6 +982,9 @@ def check_kernels(device, int_rate: float, imad_rate: float,
             rows = _check_ks(lib, P, l or P.nq, tag, rng)
             keyswitch.append({k: {"chain": label, **v}
                               for k, v in rows.items()})
+        if label in RESCALE_CHAINS:
+            rescale.append({"chain": label,
+                            **_check_rescale(lib, P, P.nq, rng)})
         for i, (name, sel, lead) in enumerate(_chain_classes(P, label)):
             row, e_f, e_i = _check_class(lib, prev, P, name, sel, lead, rng,
                                          int_rate)
@@ -918,11 +1006,12 @@ def check_kernels(device, int_rate: float, imad_rate: float,
         del P
         gc.collect()
         torch.cuda.empty_cache()
-    return largest, table, basis, keyswitch
+    return largest, table, basis, keyswitch, rescale
 
 
 def kernel_records(largest: dict, table: list, basis: list,
-                   keyswitch: list, launches: dict, ntt_rate: float) -> list:
+                   keyswitch: list, rescale: list, launches: dict,
+                   ntt_rate: float) -> list:
     """The JSON record of K1 and K2: time, bound and launches on MAIN at
     top level, and the same for every path under "paths"; the launches
     of the micro table and of ntt_bench, and for K1 ntt_bench's limb
@@ -932,7 +1021,8 @@ def kernel_records(largest: dict, table: list, basis: list,
     N=128 path and in the micro table.  Then the same for the key inner
     product and ModDown's tail, their time and bound at the hybrid1 N=128
     chain's top level (relinearisation), and their launches on every path
-    and phase that key-switches."""
+    and phase that key-switches; the same for the rescale's lift at the
+    hybrid1 N=128 chain's top level, and its launches on every path."""
     recs = []
     for key, tag, label, line in (("ntt_fwd", "fwd", "ntt_fwd (K1)", 119),
                                   ("ntt_inv", "inv", "ntt_inv (K2)", 151)):
@@ -999,6 +1089,22 @@ def kernel_records(largest: dict, table: list, basis: list,
                           R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
                           STREAM_PATH, STREAM_MESH, MESH_PATH, SHARD_PATH,
                           *BOOT_MESH.values()]]})
+    top = rescale[0]
+    recs.append({
+        "name": "rescale_lift", "route": "cuda",
+        "source": "sorting_fhe_tpu_torch/csrc/rescale.cu",
+        "replaces": None, "launches": launches[MICRO_CHAIN]["rescale_lift"],
+        "micro_launches": launches[MICRO_PATH]["rescale_lift"],
+        "max_abs_err": max(r["max_abs_err"] for r in rescale),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "shape": f"{top['chain']} {top['case']}",
+        "classes": rescale,
+        "paths": [{"path": p, "launches": launches[p]["rescale_lift"]}
+                  for p in [p for p, *_ in PATHS] + [
+                      R18_PATH, BOOT_PHASE, CLI_PATH, EXP_PATH,
+                      STREAM_PATH, STREAM_MESH, SHARD_PATH,
+                      *BOOT_MESH.values()]]})
     return recs
 
 
@@ -1053,6 +1159,13 @@ def run_path(label, algo, N, trials, device, keep: dict | None = None,
         if count <= 0 or min(t[name] for t in rec["kernel_launches"]) <= 0:
             raise AssertionError(f"{label} never launched {name} "
                                  f"(per trial {rec['kernel_launches']})")
+    lifts = [t["rescale_lift"] for t in rec["kernel_launches"]]
+    rescales = [c.get("rescale", 0) for c in rec["op_census"]]
+    print(f"[sort {label}] rescale_lift launches {lifts}, rescales "
+          f"{rescales} per trial", flush=True)
+    if lifts != rescales:
+        raise AssertionError(f"{label}: rescale_lift launches {lifts} != "
+                             f"rescales {rescales} per trial")
     if keep is not None:
         keep["rec"] = rec
     return launches, rec["device_mem"], rec["op_census"][-1]
@@ -1064,7 +1177,7 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
     bench.ntt_bench(RING_LOG), the launch counters reset just before each
     and read just after.  Requires every value finite and > 0,
     rot_hoisted_1 within MICRO_HOIST_SLACK of rot_composed_1 (at one step
-    the two do the same work), launches of the five kernels
+    the two do the same work), launches of the six kernels
     in the table and of K1 in ntt_bench.  Prints each on a line of its
     own with the card's name and power limit.  Returns both runs'
     launches and ntt_bench's rate."""
@@ -1084,6 +1197,9 @@ def micro_phase(device, card: str, run: dict) -> tuple[dict, dict, float]:
         "special": ctx.params.num_special, "dnum": ctx.cfg.dnum,
         "micro": micro, "launches": micro_launches, "s": micro_s}),
         flush=True)
+    print(f"[{MICRO_PATH}] rescale at l={ctx.params.nq}: "
+          f"{micro['rescale_ms']} ms (the two-step int64 chain: "
+          f"{RESCALE_CHAIN_MS} ms); card {card}", flush=True)
     del ctx
     gc.collect()
     torch.cuda.empty_cache()
@@ -1114,7 +1230,7 @@ def ring18_phase(device, card: str) -> dict:
     """Step 4d: the registry's hybrid1 N=1024 through bench.sort_bench at
     the ring of its registry entry, which must be 2^R18_RING_LOG (depth
     56 does not fit HEStd-128 at 2^17), with step 4's gates (run_path:
-    max_err < 0.01, security_ok, launches of the five kernels).  Prints the
+    max_err < 0.01, security_ok, launches of the six kernels).  Prints the
     chain, the rotation keys' shape and bytes, the plaintext cache's cap
     and entries after the sort, the card's name and power limit.  Returns
     the run's launches."""
@@ -1572,7 +1688,7 @@ def stream_phase(device) -> tuple[dict, dict, dict]:
     key-store hook timed (device synchronised) and its caches' bytes read
     when the trial ends; then (c), stream_mesh_phase on that context and
     input, before the context is released.  Requires the 0.01 gate,
-    HEStd-128, launches of the five kernels in the sort,
+    HEStd-128, launches of the six kernels in the sort,
     more regenerations than keys and the keys' resident bytes within the
     budget.  Returns the kernel launches of the run, the K1 launches of
     its keygen and (c)'s."""
@@ -1701,7 +1817,7 @@ def stream_mesh_phase(device, run: dict, trial: dict, single: dict,
     census, the 0.01 gate, as many regenerations as the single-device
     sort, the store's bytes within the budget at every regeneration and
     at the end, no streamed key in the mesh's own blocks, and launches
-    of the five kernels.  Prints both runs' seconds and
+    of the six kernels.  Prints both runs' seconds and
     their ratio, the regenerations and the seconds in the hook, and each
     peak.  Returns the kernel launches of the sharded sort."""
     from sorting_fhe_tpu_torch import bench
@@ -1821,7 +1937,8 @@ def mesh_phase(device, census: dict) -> dict:
     MESH_GATE of v*w and np.roll(v*w, -k) (the fresh rotations' error is
     printed, not gated: see _mesh_ops); exactly two gathers per op, of (D-1)/D of the [lq, n] digit
     residues and of the [2, ksp, n] special residues; launches of the
-    five kernels.  Prints each op's launches, its
+    five kernels that key-switch (KS_PATH_KERNELS: the ops do not
+    rescale).  Prints each op's launches, its
     best-of-MESH_REPS ms against the single-device op, the step's peak
     device memory and comm_budget of `census`; on two cards or more, the
     same ops on a mesh of distinct cards.  Returns the kernel launches of
@@ -1917,7 +2034,7 @@ def mesh_phase(device, census: dict) -> dict:
             != (want["digit"], want["moddown"])):
         raise AssertionError(f"{MESH_PATH}: gathers {log}, collective_bytes "
                              f"{cb}, expected 2 per op of {want}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in KS_PATH_KERNELS) <= 0:
         raise AssertionError(f"{MESH_PATH}: the mesh ops launched no "
                              f"kernel: {launches}")
     mesh_cards(ctx, a, b, device)
@@ -1999,7 +2116,7 @@ def sharded_phase(device) -> dict:
     slots on `device`, with the launch counters reset just before (b)
     and read just after; (c) on up to 4 distinct cards where there are
     two or more.  Requires HEStd-128, (b) and (c) torch.equal to (a),
-    the same op census, max_err < GATE, launches of the five kernels in
+    the same op census, max_err < GATE, launches of the six kernels in
     (b), the gathers per tag that the census implies and
     their bytes within comm_budget.  Returns the kernel launches of
     (b)."""
@@ -2134,7 +2251,7 @@ def boot_mesh_phase(device, label: str, run: dict) -> dict:
     gate; as many bootstraps as (a), at least one; the gathers per tag
     that the census and the bootstraps imply; their bytes per slot within
     comm_budget of the census plus the raise gathers' own, which
-    comm_budget does not count; launches of the five kernels in (b).
+    comm_budget does not count; launches of the six kernels in (b).
     Returns the kernel launches of (b)."""
     from sorting_fhe_tpu_torch import bench
     from sorting_fhe_tpu_torch.parallel.collective import comm_budget
@@ -2272,8 +2389,8 @@ def main() -> int:
             print(f"[build] {line.strip()}", flush=True)
 
     # 3. kernels vs plain versions on the card, on every path's chain
-    largest, table, basis, keyswitch = check_kernels(device, int_rate,
-                                                     imad_rate, prev)
+    largest, table, basis, keyswitch, rescale = check_kernels(
+        device, int_rate, imad_rate, prev)
     for row in table:
         print("[kernel] " + json.dumps(row), flush=True)
     for row in basis:
@@ -2281,6 +2398,8 @@ def main() -> int:
     for rows in keyswitch:
         for name, row in rows.items():
             print(f"[kernel {name}] " + json.dumps(row), flush=True)
+    for row in rescale:
+        print("[kernel rescale_lift] " + json.dumps(row), flush=True)
     print(f"[time] kernels checked at {time.perf_counter() - t_start:.1f}s",
           flush=True)
 
@@ -2342,7 +2461,7 @@ def main() -> int:
 
     # 11. results
     print(json.dumps({"kernels": kernel_records(largest, table, basis,
-                                                keyswitch, launches,
+                                                keyswitch, rescale, launches,
                                                 ntt_rate)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

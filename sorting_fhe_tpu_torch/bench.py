@@ -350,6 +350,7 @@ def resident_gb(ctx) -> dict:
 KERNEL_CLASSES = (("ntt", ("chunk_pass", "col_pass")),
                   ("base conversion", ("base_conv",)),
                   ("key switch", ("ks_inner", "moddown_tail")),
+                  ("rescale", ("rescale_lift",)),
                   ("copy", ("copy", "Copy")),
                   ("gather", ("gather", "index")),
                   ("int64 element-wise", ("long",)))
@@ -365,9 +366,9 @@ def _kernel_class(name: str) -> str:
 def profile_summary(prof, wall_s: float, top: int = 25) -> dict:
     """Device time by kernel name and by class (KERNEL_CLASSES: the NTT
     kernels; the base-conversion kernel; the key inner product and
-    ModDown's tail; copies and casts; gathers; the remaining kernels on
-    int64 tensors, the residue arithmetic of rescale, the products and
-    the other ops) from a finished
+    ModDown's tail; the rescale's lift; copies and casts; gathers; the
+    remaining kernels on int64 tensors, the residue arithmetic of the
+    products and the other ops) from a finished
     torch.profiler run, and the device's busy and idle share of the
     trial's wall time (one stream: kernels do not overlap).  The top 25
     names reach the NTT kernels' four entries (two passes each), which a

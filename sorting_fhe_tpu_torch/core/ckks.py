@@ -12,10 +12,11 @@ the context's device, canonical residues in the NTT (evaluation) domain and
 the Montgomery domain — the JAX package's uint32 bits.  Arithmetic is
 exact int64 (core/rns.py), so every op returns the residues the JAX op
 returns.  Both NTTs go through core/cuda_ntt.py, the key switch's base
-conversions (ModUp, ModDown) through core/cuda_basis.py and its key inner
-product and ModDown's tail through core/cuda_keyswitch.py: the
-hand-written kernels of core/cuda_lib.py's library on a CUDA device, their
-plain versions on the CPU.  Each key-switching op is composed once, by the
+conversions (ModUp, ModDown) through core/cuda_basis.py, its key inner
+product and ModDown's tail through core/cuda_keyswitch.py and the
+composite rescale's lift through core/cuda_rescale.py: the hand-written
+kernels of core/cuda_lib.py's library on a CUDA device, their plain
+versions on the CPU.  Each key-switching op is composed once, by the
 context's `_relin` and `_fast_rotate` over `_decompose` and `_keyswitch`.
 
 Differences from the JAX package, none of which changes a bit: ops are
@@ -57,6 +58,7 @@ from .rns import add_mod, sub_mod, neg_mod, mont_mul
 from .cuda_ntt import ntt_fwd, ntt_inv
 from .cuda_basis import base_conv
 from .cuda_keyswitch import ks_inner, moddown_tail
+from .cuda_rescale import rescale_lift, rescale_tables
 
 SCALE_TOL = 2.0 ** -25
 # the rotation keys' budget in MB for a config that names none
@@ -217,11 +219,6 @@ def _inv_sp(x, T: _LevelTables):
     return ntt_inv(_i32(x), T.ntt, T.rows_sp)
 
 
-def _inv_q_dyn(x, T: _LevelTables, idx: int):
-    """Inverse NTT of the single q row `idx` (the rescale's dropped row)."""
-    return ntt_inv(_i32(x), T.ntt, T.rows_q[idx:idx + 1])
-
-
 def _kj_add(a, b, p):
     return add_mod(a, b, p).to(I32)
 
@@ -263,22 +260,18 @@ def _int_rows(m: int, T) -> torch.Tensor:
     return torch.tensor([m % p for p in T.q_host], dtype=I64, device=T.device)
 
 
-def _kj_rescale(data, steps, T: _LevelTables):
+def _kj_rescale(data, consts, T: _LevelTables):
     """Composite rescale: drop the `comp` primes q[l-1], q[l-2], ... in one
-    op.  Per dropped prime q_d: (c - lift([c]_{q_d})) * q_d^{-1} (OpenFHE
-    ModReduce semantics, one level = comp primes).  Each step keeps only
-    the rows below the dropped one, which equal the JAX op's rows."""
-    for (idx, rinv, qd, half, qd_mod, qdinv) in steps:
-        lc = _inv_q_dyn(data[:, idx:idx + 1, :], T, idx)   # [k,1,n] Mont
-        v = lc.to(I64) * rinv % qd                         # plain [k,1,n]
-        p_all = _col(T.q_p[:idx])
-        r = v % p_all
-        r = torch.where(v > half, sub_mod(r, _col(qd_mod[:idx]), p_all), r)
-        rm = r * _col(T.rmod[:idx]) % p_all                # to Mont
-        rn = _fwd_q(rm, T, idx)
-        diff = sub_mod(data[:, :idx, :], rn, p_all)
-        data = (diff * _col(qdinv[:idx]) % p_all).to(I32)
-    return data
+    op (OpenFHE ModReduce semantics, one level = comp primes), int32 [k,
+    l - comp, n].  The comp steps (c - lift([c]_{q_d})) * q_d^-1 combine
+    into one (core/cuda_rescale.py): the inverse NTT of the dropped rows,
+    their combined lift on the kept rows (`rescale_lift`), its forward NTT
+    and (x - lift) * (prod q_d)^-1 (`moddown_tail`, the kept rows read in
+    place).  `consts`: CkksContext._rescale_consts(l)."""
+    drop, keep, pinv = consts
+    lo = T.l - drop.shape[0]
+    lift = rescale_lift(_inv_q(data[:, lo:], T, lo, T.l), drop, keep)
+    return moddown_tail(data[:, :lo], _fwd_q(lift, T, lo), T.q_p[:lo], pinv)
 
 
 def _kj_decompose(cx, T: _LevelTables):
@@ -495,27 +488,13 @@ class CkksContext:
         return value
 
     def _rescale_consts(self, l: int) -> tuple:
-        """Dropped-prime-dependent rescale constants for limb count l: per
-        step (idx, rinv, qd, qd//2, qd mod q [l], qd^-1 mod q [l])."""
-        if l in self._rs_cache:
-            return self._rs_cache[l]
-        P = self.params
-        q = P.q
-        steps = []
-        for i in range(P.comp):
-            cur = l - i                  # limb count before this drop
-            qd = q[cur - 1]
-            rinv = nt.mod_inverse((1 << 32) % qd, qd)
-            qd_mod = np.zeros(l, dtype=np.int64)
-            qdinv = np.zeros(l, dtype=np.int64)
-            for r in range(cur - 1):
-                p = q[r]
-                qd_mod[r] = qd % p
-                qdinv[r] = nt.mod_inverse(qd % p, p)
-            steps.append((cur - 1, rinv, qd, qd // 2,
-                          torch.from_numpy(qd_mod).to(self.device),
-                          torch.from_numpy(qdinv).to(self.device)))
-        self._rs_cache[l] = tuple(steps)
+        """The composite rescale's tables from limb count l, cached:
+        cuda_rescale.rescale_tables of the dropped primes q[l-1], q[l-2],
+        ... onto the kept rows q[:l - comp]."""
+        if l not in self._rs_cache:
+            q, comp = self.params.q, self.params.comp
+            self._rs_cache[l] = rescale_tables(q[l - comp:l][::-1],
+                                               q[:l - comp], self.device)
         return self._rs_cache[l]
 
     # ---------------- key management ----------------
@@ -640,10 +619,12 @@ class CkksContext:
                                                          T.q_p), data)
 
     def _relin(self, d, l: int):
-        """[3, l, n] -> d[:2] + ModDown(<decompose(d[2]), relin key>)."""
-        exts = self._decompose(self._local(l, lambda T, x: x[2], d), l)
+        """[3, l, n] -> d[:2] + ModDown(<decompose(d[2]), relin key>).  The
+        digits are freed before the final add, whose int64 temporaries
+        would otherwise join them at the op's memory peak."""
         self.ks_digits += -(-l // self.params.alpha)
-        dd = self._keyswitch(exts, "relin", l)
+        dd = self._keyswitch(self._decompose(
+            self._local(l, lambda T, x: x[2], d), l), "relin", l)
         return self._local(l, lambda T, x, y: add_mod(
             x[:2], y, _col(T.q_p)).to(I32), d, dd)
 

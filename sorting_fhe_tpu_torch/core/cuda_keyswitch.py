@@ -17,11 +17,14 @@ the columns; None for relinearisation) is the automorphism the digits are
 read through.  `ks_inner` returns the canonical int32 q rows [2, lq, n] and
 special rows [2, E - lq, n], each contiguous.  `moddown_tail` takes int32
 [K, l, n] canonical residues and int64 [l] `p` and `pinv` and returns int32
-[K, l, n].
+[K, l, n]; `acc_q` may be the first l rows of a contiguous [K, la, n],
+which the kernel reads in place.
 
 Callers: the key switch (`_k_ks_moddown` in core/ckks.py: relinearisation,
 rotations, conjugation, hoisted rotations) and the mesh's copies of it
-(parallel/collective.py `_inner`, `_phase3`).
+(parallel/collective.py `_inner`, `_phase3`); `moddown_tail` also ends the
+composite rescale (`_kj_rescale` in core/ckks.py, the mesh's
+`_rescale_block`), on a ciphertext's kept rows in place.
 
 Dispatch by core/cuda_lib.py's device rule: a CPU tensor takes the plain
 version (`ks_inner_t`, `moddown_tail_t`: the int64 torch chains the key
@@ -100,8 +103,9 @@ def ks_inner(exts, key, p, rinv, lq: int, kq: int, perm=None) -> tuple:
 
 def moddown_tail(acc_q, conv, p, pinv) -> torch.Tensor:
     """(acc_q - conv) * pinv mod p (module docstring): the kernel on a
-    CUDA tensor, the plain version on a CPU one."""
-    cuda_lib.residues("moddown_tail", "acc_q", acc_q, 3)
+    CUDA tensor, the plain version on a CPU one.  `acc_q` may be a row
+    view (cuda_lib.row_pitch)."""
+    cuda_lib.residues("moddown_tail", "acc_q", acc_q, 3, row_view=True)
     cuda_lib.residues("moddown_tail", "conv", conv, 3, acc_q.device)
     if conv.shape != acc_q.shape:
         raise ValueError(f"moddown_tail: shapes differ: {tuple(acc_q.shape)}"
@@ -113,9 +117,9 @@ def moddown_tail(acc_q, conv, p, pinv) -> torch.Tensor:
         return moddown_tail_t(acc_q, conv, p, pinv)
     if n % 4:
         raise ValueError(f"moddown_tail: n = {n} is not a multiple of 4")
-    out = torch.empty_like(acc_q)
+    out = torch.empty_like(conv)
     if out.numel():
         cuda_lib.launch("moddown_tail", acc_q.device, acc_q.data_ptr(),
                         conv.data_ptr(), p.data_ptr(), pinv.data_ptr(),
-                        out.data_ptr(), K, l, n)
+                        out.data_ptr(), K, l, cuda_lib.row_pitch(acc_q), n)
     return out

@@ -13,7 +13,8 @@ last argument is the stream: `launch(k, device, *args)` appends the
 device's current stream, raises on an error and counts the call in
 `launches`, keyed by k.  KERNELS names them all, in SIGNATURES' order.
 
-The wrappers (core/cuda_ntt.py, cuda_basis.py, cuda_keyswitch.py) keep
+The wrappers (core/cuda_ntt.py, cuda_basis.py, cuda_keyswitch.py,
+cuda_rescale.py) keep
 each kernel's plain version, its own preconditions, its output and one
 `launch` call.  They share the device rule (`kernel_device`: the CPU
 runs the plain version, a CUDA device the kernel, any other device
@@ -51,7 +52,8 @@ SIGNATURES = {
     "ntt_inv_launch": [_vp] * 8 + [_ci, _ci, _cll, _ci, _vp],
     "base_conv_launch": [_vp] * 6 + [_ci] * 6 + [_vp],
     "ks_inner_launch": [_vp] * 7 + [_ci] * 6 + [_vp],
-    "moddown_tail_launch": [_vp] * 5 + [_ci] * 3 + [_vp],
+    "moddown_tail_launch": [_vp] * 5 + [_ci] * 4 + [_vp],
+    "rescale_lift_launch": [_vp] * 4 + [_ci] * 4 + [_vp],
 }
 KERNELS = tuple(name.removesuffix("_launch") for name in SIGNATURES
                 if name.endswith("_launch"))
@@ -138,18 +140,35 @@ def kernel_device(name: str, device: torch.device) -> bool:
 
 
 def residues(name: str, t_name: str, t: torch.Tensor, dims=None,
-             device=None):
+             device=None, row_view: bool = False):
     """Raise unless `t` is contiguous int32 (canonical residues) with
-    `dims` dimensions (any, for None) on `device` (any, for None)."""
+    `dims` dimensions (any, for None) on `device` (any, for None).  With
+    `row_view`, `t` [K, l, n] may also be the first l rows of a
+    contiguous [K, la, n] (strides (la n, n, 1)): `row_pitch` gives la."""
     if t.dtype != torch.int32:
         raise TypeError(f"{name}: {t_name} must be int32, got {t.dtype}")
-    if (dims is not None and t.dim() != dims) or not t.is_contiguous():
-        raise ValueError(f"{name}: {t_name} must be contiguous with "
+    ok = t.is_contiguous() or (row_view and row_pitch(t) is not None)
+    if (dims is not None and t.dim() != dims) or not ok:
+        raise ValueError(f"{name}: {t_name} must be contiguous"
+                         f"{' or a row view' if row_view else ''} with "
                          f"{dims or 'any'} dimensions, got {tuple(t.shape)}"
-                         f" contiguous={t.is_contiguous()}")
+                         f" strides {t.stride()}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: devices differ: {device}, {t_name} "
                          f"{t.device}")
+
+
+def row_pitch(t: torch.Tensor):
+    """la where the 3-dimensional `t` [K, l, n] lies in a contiguous [K, la,
+    n] as its first l rows (la = l for a contiguous t), else None."""
+    if t.dim() != 3:
+        return None
+    K, l, n = t.shape
+    s0, s1, s2 = t.stride()
+    if s2 != 1 or (s1 != n and l > 1) or s0 % n:
+        return None
+    la = s0 // n if K > 1 else l
+    return la if la >= l else None
 
 
 def tables(name: str, device: torch.device, **named):

@@ -17,7 +17,10 @@
 // moddown_tail:
 //   out[b, r, :] = (a[b, r, :] - c[b, r, :]) * pinv_r mod p_r
 // over int32 [K, l, n]: the inner product's q rows less the forward NTT of
-// ModDown's base conversion, times P^-1 mod q_r.
+// ModDown's base conversion, times P^-1 mod q_r.  `a` may be the first l
+// rows of a [K, la, n] tensor (la >= l), read in place: the composite
+// rescale (csrc/rescale.cu) passes a ciphertext's kept rows and its lift,
+// with pinv the dropped primes' product inverted.
 //
 // They replace no TPU kernel.  The JAX package's _k_ks_inner and
 // _k_moddown (sorting_fhe_tpu/core/ckks.py) are jnp that XLA fuses.  The
@@ -201,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
 moddown_tail(const uint32_t* __restrict__ a, const uint32_t* __restrict__ c,
              const int64_t* __restrict__ primes,
              const int64_t* __restrict__ pinv, uint32_t* __restrict__ out,
-             int l, int n) {
+             int l, int la, int n) {
   const int r = blockIdx.y, b = blockIdx.z;
   const int col = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   if (col >= n) return;
@@ -210,7 +213,7 @@ moddown_tail(const uint32_t* __restrict__ a, const uint32_t* __restrict__ c,
   const uint32_t w = (uint32_t)pinv[r];
   const size_t off = ((size_t)b * l + r) * n + col;
   uint32_t x[kCols], y[kCols], o[kCols];
-  load4(a + off, x);
+  load4(a + ((size_t)b * la + r) * n + col, x);
   load4(c + off, y);
 #pragma unroll
   for (int i = 0; i < kCols; ++i) {
@@ -257,12 +260,13 @@ extern "C" int ks_inner_launch(const void* ext, const void* key,
 }
 
 // out[K, l, n] = (a - c) * pinv mod p, row by row (see the top of this
-// file); n a multiple of 4.
+// file), a's rows la apart per poly (la >= l); n a multiple of 4.
 extern "C" int moddown_tail_launch(const void* a, const void* c,
                                    const void* primes, const void* pinv,
-                                   void* out, int K, int l, int n,
+                                   void* out, int K, int l, int la, int n,
                                    void* stream) {
-  if (K < 1 || K > 65535 || l < 1 || l > 65535 || n < kCols || n % kCols)
+  if (K < 1 || K > 65535 || l < 1 || l > 65535 || la < l || n < kCols ||
+      n % kCols)
     return (int)cudaErrorInvalidValue;
   if (!aligned(a) || !aligned(c) || !aligned(out))
     return (int)cudaErrorInvalidValue;
@@ -273,6 +277,6 @@ extern "C" int moddown_tail_launch(const void* a, const void* c,
   uint32_t* o = static_cast<uint32_t*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((n + kTile - 1) / kTile, l, K);
-  moddown_tail<<<grid, kThreads, 0, st>>>(x, y, p, w, o, l, n);
+  moddown_tail<<<grid, kThreads, 0, st>>>(x, y, p, w, o, l, la, n);
   return (int)cudaGetLastError();
 }

@@ -23,10 +23,10 @@ the level and scale bookkeeping is CkksContext's own.  The steps:
   blocks, the automorphism of Galois element 2n-1);
 * rescale: the owners of the `comp` dropped rows inverse-NTT them (K2),
   one gather ("rescale") hands the [k, comp, n] coefficient rows to every
-  slot, and each slot lifts them, forward-NTTs (K1), subtracts and
-  multiplies by q_d^-1 on its own rows.  The drops after the first take
-  the dropped rows updated in coefficient form (the NTT is linear mod p),
-  so the result equals the single-device rescale bit for bit;
+  slot, and each slot runs the single-device composition on its own kept
+  rows: the combined lift (core/cuda_rescale.rescale_lift), one forward
+  NTT (K1) and (x - lift) * (prod q_d)^-1 (moddown_tail), so the result
+  equals the single-device rescale bit for bit;
 * mod_raise from l0 limbs: the owners of the l0 base rows inverse-NTT
   them (K2), one gather ("raise") hands the [k, l0, n] coefficient rows
   to every slot, and each slot computes the float32 correction count
@@ -55,14 +55,13 @@ import collections
 import numpy as np
 import torch
 
-from ..core import nt
-from ..core.ckks import CkksContext, _col, _i32, _k_raise_rows, _kj_encode
-from ..core.rns import sub_mod
+from ..core.ckks import CkksContext, _i32, _k_raise_rows, _kj_encode
+from ..core.cuda_keyswitch import moddown_tail
+from ..core.cuda_rescale import rescale_lift, rescale_tables
 from .collective import _on, decompose, fwd, inv, keyswitch
 from .mesh import (Blocks, Mesh, ShardedCiphertext, all_gather,
                    shard_ciphertext, shard_context_tables, split_rows)
 
-I32 = torch.int32
 I64 = torch.int64
 
 
@@ -167,29 +166,20 @@ class ShardedContext(CkksContext):
                 drops.append(inv(x[:, F.lq:], S, S.rows_q[F.lq:]))
         coeffs = all_gather(drops, self.mesh, 1, tag="rescale")
         out = Blocks()
-        for x, c, F, steps in zip(data, coeffs, low, self._rescale_slots(l)):
+        for x, c, F, consts in zip(data, coeffs, low,
+                                   self._rescale_slots(l)):
             with _on(F.device):
-                out.append(_rescale_block(x[:, :F.lq], c, F, steps))
+                out.append(_rescale_block(x[:, :F.lq], c, F, consts))
         return out
 
     def _rescale_slots(self, l: int) -> list:
-        """Per slot, the rescale's steps from limb count l: (position of
-        the dropped row among the comp gathered ones, 2^-32 mod q_d, q_d,
-        q_d // 2, q_d mod and q_d^-1 mod the slot's kept rows, and for each
-        gathered row still to drop: its position, prime, q_d mod and
-        q_d^-1 mod it, R mod it)."""
+        """Per slot, the rescale's tables from limb count l onto its kept
+        rows, on its device (cuda_rescale.rescale_tables)."""
         if l not in self._rs_slots:
-            q, base = self.params.q, l - self.params.comp
-            steps = self._rescale_consts(l)
-            self._rs_slots[l] = [[
-                (idx - base, rinv, qd, half, qd_mod[F.rows_q.long().to(
-                    qd_mod.device)].to(F.device), qdinv[F.rows_q.long().to(
-                        qdinv.device)].to(F.device),
-                 [(d - base, q[d], qd % q[d],
-                   nt.mod_inverse(qd % q[d], q[d]), (1 << 32) % q[d])
-                  for d in range(base, idx)])
-                for idx, rinv, qd, half, qd_mod, qdinv in steps]
-                for F in self.mesh_tables.level(base)]
+            q, comp = self.params.q, self.params.comp
+            self._rs_slots[l] = [
+                rescale_tables(q[l - comp:l][::-1], F.q_host, F.device)
+                for F in self.mesh_tables.level(l - comp)]
         return self._rs_slots[l]
 
     def _mod_raise_data(self, data, l0: int):
@@ -243,27 +233,17 @@ class ShardedContext(CkksContext):
         self.mesh_tables.blocks("conj")
 
 
-def _rescale_block(x: torch.Tensor, coeffs: torch.Tensor, F, steps
+def _rescale_block(x: torch.Tensor, coeffs: torch.Tensor, F, consts
                    ) -> torch.Tensor:
     """One slot's rescale of its kept rows x [k, lq, n] (F: its tables at
-    the lower level) from the gathered coefficient rows [k, comp, n] of
-    the dropped primes: _kj_rescale's steps, the rows still to drop
-    updated in coefficient form."""
-    lc = coeffs.to(I64)
-    p = _col(F.q_p)
-    for j, rinv, qd, half, qd_mod, qdinv, rest in steps:
-        v = lc[:, j:j + 1] * rinv % qd                     # plain [k, 1, n]
-        for jj, pd, qm, qi, rm in rest:
-            r = v % pd
-            r = torch.where(v > half, sub_mod(r, qm, pd), r)
-            lc[:, jj:jj + 1] = sub_mod(lc[:, jj:jj + 1], r * rm % pd,
-                                       pd) * qi % pd
-        if F.lq:
-            r = v % p
-            r = torch.where(v > half, sub_mod(r, _col(qd_mod), p), r)
-            rn = fwd(r * _col(F.rmod) % p, F, F.rows_q)
-            x = (sub_mod(x, rn, p) * _col(qdinv) % p).to(I32)
-    return _i32(x)
+    the lower level; x may be a row view of its block) from the gathered
+    coefficient rows [k, comp, n] of the dropped primes: _kj_rescale's
+    composition on the slot's rows, `consts` its _rescale_slots entry."""
+    if not F.lq:
+        return _i32(x)
+    drop, keep, pinv = consts
+    lift = fwd(rescale_lift(_i32(coeffs), drop, keep), F, F.rows_q)
+    return moddown_tail(x, lift, F.q_p, pinv)
 
 
 def shard_context(ctx: CkksContext, mesh: Mesh) -> ShardedContext:

@@ -1,6 +1,6 @@
-"""K1/K2, the base-conversion kernel and the key switch's two kernels
-against their plain versions, on the card, each call counted once in
-core/cuda_lib.py's `launches`.
+"""K1/K2, the base-conversion kernel, the key switch's two kernels and the
+composite rescale's lift against their plain versions, on the card, each
+call counted once in core/cuda_lib.py's `launches`.
 
 Marked `cuda`: they skip without a CUDA device (a CUDA kernel has no CPU
 mode).  This file imports no JAX, so it also runs where only the port is
@@ -299,3 +299,62 @@ def test_ks_inner_rejects_bad_input(device):
     q = exts[0, :6].expand(2, 6, 1 << 8)
     with pytest.raises(ValueError):             # not contiguous
         ck.moddown_tail(q, q.contiguous(), p[:6].contiguous(), rinv[:6])
+
+
+# (algo, N, q rows): the composite rescale from the top level of each
+# benchmark cell's chain (hybrid1 N=128: 95 q rows; MEHP24 N=128: 89;
+# MEHP24 N=512: 105) and of the ring-2^18 chain (hybrid1 N=1024: 115), all
+# at comp = 2, on the registry's primes
+RESCALE_CHAINS = {
+    "hybrid1 N=128": ("hybrid1", 128, 95),
+    "mehp24 N=128": ("mehp24", 128, 89),
+    "mehp24 N=512": ("mehp24", 512, 105),
+    "hybrid1 N=1024 ring 2^18": ("hybrid1", 1024, 115),
+}
+
+
+@pytest.mark.parametrize("name", list(RESCALE_CHAINS))
+def test_rescale_bit_equal_to_plain(device, name):
+    """For 2 and 3 polys, on random residues and on residues at p - 1:
+    rescale_lift bit-equal to rescale_lift_t, and the composed rescale
+    (CkksContext._rescale_data: K2 of the dropped rows, the lift, K1 of
+    the kept rows, moddown_tail on the kept rows in place) bit-equal to
+    the same steps' plain versions, one launch of each kernel a call."""
+    from sorting_fhe_tpu_torch.core import ckks
+    from sorting_fhe_tpu_torch.core import cuda_keyswitch as ck
+    from sorting_fhe_tpu_torch.core import cuda_rescale as cr
+    from sorting_fhe_tpu_torch.registry import full_config, get_params
+    algo, N, l = RESCALE_CHAINS[name]
+    ctx = ckks.CkksContext.__new__(ckks.CkksContext)
+    ctx._init_common(full_config(get_params(algo, N)), device)
+    P, n, tabs = ctx.params, ctx.n, ctx.params.ntt
+    assert (P.nq, P.comp) == (l, 2)
+    lo = l - 2
+    drop, keep, pinv = ctx._rescale_consts(l)
+    q_p = ctx.tables(l).q_p
+    up = torch.arange(lo, l, device=device)
+    down = torch.arange(lo, device=device)
+    rng = np.random.default_rng(l)
+    for k in (2, 3):
+        for top in (False, True):
+            p = np.asarray(P.q[:l], np.uint64).reshape(-1, 1)
+            x = np.broadcast_to(p - 1, (k, l, n)) if top else \
+                rng.integers(0, 1 << 62, size=(k, l, n), dtype=np.uint64) % p
+            x = torch.from_numpy(np.ascontiguousarray(
+                x, dtype=np.uint32).view(np.int32)).to(device)
+            c = x[:, lo:].contiguous()
+            before = cuda_lib.launches.copy()
+            lift = cr.rescale_lift(c, drop, keep)
+            assert cuda_lib.launches["rescale_lift"] == \
+                before["rescale_lift"] + 1
+            assert torch.equal(lift, cr.rescale_lift_t(c, drop, keep)), \
+                (k, top)
+            before = cuda_lib.launches.copy()
+            got = ctx._rescale_data(x, l)
+            assert [cuda_lib.launches[kk] - before[kk] for kk in (
+                "rescale_lift", "moddown_tail")] == [1, 1]
+            coeffs = ntt_inv_t(c, tabs.p[up], tabs.ipsi[up], tabs.n_inv[up])
+            lift = ntt_fwd_t(cr.rescale_lift_t(coeffs, drop, keep),
+                             tabs.p[down], tabs.psi[down])
+            want = ck.moddown_tail_t(x[:, :lo], lift, q_p[:lo], pinv)
+            assert torch.equal(got, want), (k, top)
